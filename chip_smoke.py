@@ -1,0 +1,320 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port runs on an NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card, ``nvcc`` (for ``sm_90a``) and PyTorch built for CUDA;
+run from the root of a checkout. Phases, each of which fails the script:
+
+  1. set-up: the card's name and power limit; build of the kernels from
+     ``pyscf_isdf_tpu_torch/csrc`` (seconds printed);
+  2. K1 (AO collocation) against its plain torch version, float64 (bar
+     1e-12 absolute) and float32 (bar 1e-5 relative), on diamond
+     primitive szv 16^3, dzvp 12^3, a hydrogen box with few lattice images,
+     and diamond 3x3x3 szv 48^3 (every grid block);
+  3. K2 (robust-K cross term) against its plain version at the main-path
+     shape and a padded shape, float64 (1e-10 relative) and float32
+     (1e-4 relative); CUDA-event timings of kernel, plain version and the
+     one-call library formulation;
+  4. a small cell's PBE0 robust-ISDF SCF on the card against the same SCF
+     on the CPU (1e-8 Ha);
+  5. the main path: build_scf_system(diamond 3x3x3, 48^3) and
+     scf_kernel(xc='pbe0', df='isdf-robust', isdf_c=16, conv_tol=1e-8) on
+     the card with the launch counters zeroed just before and read just
+     after, then one FFTDF exchange at the final density
+     (|tr(D(K_fftdf - K_robust))| < 1e-3 Ha).
+
+It prints the kernels' JSON summary and, as its last line,
+{"ok": true, "device": {...}}. It imports nothing of JAX.
+"""
+import json
+import math
+import os
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# peak rates of one H100 SXM (NVIDIA data sheet, dense, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"fp64_tensor": 67e12, "fp64": 34e12, "fp32": 67e12}
+
+
+def fail(msg):
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def check(cond, msg):
+    if not cond:
+        fail(msg)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_time_ms(fn, reps=5, warmup=1):
+    """Median of ``reps`` CUDA-event timings of fn() after ``warmup`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def bound_ms(nbytes, flops, peak):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[peak] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_k1(torch, cell_cases):
+    """K1 against its plain version; returns the main-path numbers."""
+    from pyscf_isdf_tpu_torch.ops import cuda_ao
+
+    main = {}
+    for name, make_cell in cell_cases:
+        cell = make_cell()
+        for dtype in (torch.float64, torch.float32):
+            ev = cuda_ao.make_ao_evaluator(cell, dtype=dtype, device="cuda")
+            err = scale = 0.0
+            for args in ev.staged:
+                out = cuda_ao.collocate(*args)
+                torch.cuda.synchronize()
+                ref = cuda_ao.collocate_plain(*args)
+                err = max(err, float((out - ref).abs().max()))
+                scale = max(scale, float(ref.abs().max()))
+            if dtype == torch.float64:
+                ok = err < 1e-12
+                bar = "abs 1e-12"
+            else:
+                ok = err < 1e-5 * scale
+                bar = "rel 1e-5"
+            log(f"K1 {name} nao={cell.nao} ng={cell.ngrids} {dtype}: "
+                f"max|kernel-plain|={err:.3e} (max|plain|={scale:.3f}, bar {bar})")
+            check(ok, f"K1 disagrees with its plain version on {name} {dtype}")
+            if name == "diamond333" and dtype == torch.float64:
+                main = dict(evaluator=ev, err=err)
+    ev = main["evaluator"]
+
+    def run_kernel():
+        for args in ev.staged:
+            cuda_ao.collocate(*args)
+
+    def run_plain():
+        for args in ev.staged:
+            cuda_ao.collocate_plain(*args)
+
+    ms = cuda_time_ms(run_kernel, reps=7)
+    plain_ms = cuda_time_ms(run_plain)
+    n_exp, flops = cuda_ao.collocation_work(ev.plans, ev.block)
+    inputs = {t.data_ptr(): t for args in ev.staged for t in args[1:]}
+    nbytes = sum(t.numel() * t.element_size() for t in inputs.values())
+    nbytes += sum(p.ns * p.K * (2 * p.l + 1) for p in ev.plans) \
+        * ev.staged[0][5].shape[1] * 8
+    bms, by = bound_ms(nbytes, flops, "fp64")
+    log(f"K1 diamond333 f64: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bms:.3f} ms ({by}; {n_exp} exp, {flops} flop, {nbytes} B)")
+    return dict(err=main["err"], ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by)
+
+
+def phase_k2(torch, ng, nao, nip):
+    """K2 against its plain version; returns the main-path numbers."""
+    from pyscf_isdf_tpu_torch.ops.cuda_robust_k import (
+        robust_k_cross, robust_k_cross_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    result = {}
+    for shape in ((ng, nao, nip), (4099, 37, 333)):
+        g_, a_, p_ = shape
+        for dtype in (torch.float64, torch.float32):
+            aoR = torch.randn(g_, a_, generator=gen, device="cuda", dtype=dtype)
+            B = torch.randn(p_, a_, generator=gen, device="cuda", dtype=dtype)
+            Vxi = torch.randn(p_, g_, generator=gen, device="cuda", dtype=dtype)
+            out = robust_k_cross(aoR, B, Vxi)
+            torch.cuda.synchronize()
+            ref = robust_k_cross_plain(aoR, B, Vxi)
+            err = float((out - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            bar = 1e-10 if dtype == torch.float64 else 1e-4
+            log(f"K2 ng={g_} nao={a_} n_ip={p_} {dtype}: max|kernel-plain|="
+                f"{err:.3e} (relative {rel:.3e}, bar {bar:g})")
+            check(rel < bar, f"K2 disagrees with its plain version at {shape} {dtype}")
+            if shape == (ng, nao, nip) and dtype == torch.float64:
+                result = dict(err=err, args=(aoR, B, Vxi))
+    aoR, B, Vxi = result.pop("args")
+    result["ms"] = cuda_time_ms(lambda: robust_k_cross(aoR, B, Vxi))
+    result["plain_ms"] = cuda_time_ms(lambda: robust_k_cross_plain(aoR, B, Vxi))
+    # one-call library formulation (the reference's unfused XLA path);
+    # timed here only, never called by the port
+    result["library_ms"] = cuda_time_ms(lambda: (Vxi.T * (aoR @ B.T)).T @ aoR)
+    nbytes = (ng * nao + 2 * nip * nao + nip * ng) * 8
+    result["bound_ms"], result["bound_by"] = bound_ms(
+        nbytes, 4.0 * ng * nip * nao, "fp64_tensor")
+    log(f"K2 main shape f64: kernel {result['ms']:.3f} ms, plain "
+        f"{result['plain_ms']:.3f} ms, library {result['library_ms']:.3f} ms, "
+        f"bound {result['bound_ms']:.3f} ms ({result['bound_by']})")
+    del aoR, B, Vxi
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_small_scf(torch):
+    """PBE0 robust-ISDF SCF of a small off-symmetry cell: card vs CPU."""
+    from pyscf_isdf_tpu_torch import build_cell
+    from pyscf_isdf_tpu_torch.scf import build_scf_system, scf_kernel
+
+    def cell():
+        return build_cell([[0.0, 1.7834, 1.7834], [1.7834, 0.0, 1.7834],
+                           [1.7834, 1.7834, 0.0]],
+                          [["C", (0.0, 0.0, 0.0)], ["C", (0.93, 0.87, 0.90)]],
+                          "gth-szv", pseudo="gth-pade", mesh=(12, 12, 12),
+                          unit="Angstrom")
+
+    e = {}
+    for dev in ("cuda", "cpu"):
+        res = scf_kernel(build_scf_system(cell(), device=dev), xc="pbe0",
+                         df="isdf-robust", conv_tol=1e-10)
+        check(res["converged"], f"small-cell SCF on {dev} did not converge")
+        e[dev] = res["e_tot"]
+    log(f"small cell PBE0/isdf-robust: e_tot card {e['cuda']:.12f}, "
+        f"cpu {e['cpu']:.12f}, |diff| {abs(e['cuda'] - e['cpu']):.3e} (bar 1e-8)")
+    check(abs(e["cuda"] - e["cpu"]) < 1e-8, "small-cell SCF: card != CPU")
+
+
+def phase_main(torch):
+    from pyscf_isdf_tpu_torch.df import fftdf, isdf as isdf_mod
+    from pyscf_isdf_tpu_torch.models import diamond_supercell
+    from pyscf_isdf_tpu_torch.ops.cuda_ao import collocate
+    from pyscf_isdf_tpu_torch.ops.cuda_robust_k import robust_k_cross
+    from pyscf_isdf_tpu_torch.scf import build_scf_system, scf_kernel
+    from pyscf_isdf_tpu_torch.utils.timing import StageTimer
+
+    timer = StageTimer("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    collocate.launches = 0
+    robust_k_cross.launches = 0
+    t0 = time.perf_counter()
+    with timer("cell"):
+        cell = diamond_supercell((3, 3, 3), mesh=(48, 48, 48))
+    system = build_scf_system(cell, device="cuda", timer=timer)
+    res = scf_kernel(system, xc="pbe0", df="isdf-robust", isdf_c=16,
+                     conv_tol=1e-8, timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"ao_collocate": collocate.launches,
+                "robust_k_cross": robust_k_cross.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    dm = res["dm"]
+    with timer("fftdf_k"):
+        vk_fft = fftdf.get_k(system.aoR, dm, system.coulG, system.mesh,
+                             system.weight, chunk=8)
+    vk_rob = isdf_mod.get_k_robust(res["isdf"], system.aoR, dm, system.weight)
+    deficit = abs(float(torch.einsum("ij,ji->", dm, vk_fft - vk_rob)))
+
+    s = timer.seconds
+    log(f"main path: diamond 3x3x3 gth-szv natm={cell.natm} nao={cell.nao} "
+        f"ngrids={cell.ngrids} n_ip={res['isdf'].n_ip}")
+    log("stage seconds: " + ", ".join(
+        f"{k}={sum(v):.3f}" for k, v in s.items()
+        if k not in ("J", "K", "XC", "eigh")))
+    log("per-iteration seconds (mean over calls): " + ", ".join(
+        f"{k}={statistics.mean(s[k]):.4f} (n={len(s[k])})"
+        for k in ("J", "K", "XC", "eigh") if k in s))
+    log(f"main path wall {wall:.1f} s, peak device memory {peak_gb:.2f} GB")
+    log(f"e_tot={res['e_tot']:.10f} converged={res['converged']} "
+        f"niter={res['niter']}")
+    log(f"launches on the main path: {launches}")
+    log(f"|tr(D(K_fftdf - K_robust))| = {deficit:.3e} Ha (bar 1e-3)")
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel of the main path was not launched: {launches}")
+    check(math.isfinite(res["e_tot"]), "main-path energy is not finite")
+    check(res["converged"], "main-path SCF did not converge")
+    check(deficit < 1e-3, f"robust-K trace deficit {deficit:.3e} Ha >= 1e-3")
+    return launches, res["isdf"].n_ip
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    if not os.path.isdir(os.path.join(ROOT, "pyscf_isdf_tpu_torch")):
+        fail("run from a checkout: pyscf_isdf_tpu_torch/ is missing")
+    sys.path.insert(0, ROOT)
+    t_start = time.perf_counter()
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+
+    from pyscf_isdf_tpu_torch import build_cell
+    from pyscf_isdf_tpu_torch.models import diamond_primitive, diamond_supercell
+    from pyscf_isdf_tpu_torch.ops import cuda_lib
+
+    t0 = time.perf_counter()
+    cuda_lib.load()
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, "
+        f"{len(cuda_lib.SOURCES)} sources in parallel)")
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", cuda_lib.build_log)]
+    if regs:
+        log(f"ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers")
+
+    cases = [
+        ("diamond_szv_16", lambda: diamond_primitive(mesh=(16, 16, 16))),
+        ("diamond_dzvp_12", lambda: diamond_primitive(mesh=(12, 12, 12),
+                                                      basis="gth-dzvp")),
+        ("h_box_few_images", lambda: build_cell(
+            [[40.0, 0, 0], [0, 40.0, 0], [0, 0, 40.0]],
+            [["H", (20.0, 20.0, 20.0)]], "gth-szv", mesh=(16, 16, 16))),
+        ("diamond333", lambda: diamond_supercell((3, 3, 3), mesh=(48, 48, 48))),
+    ]
+    k1 = phase_k1(torch, cases)
+    k2 = phase_k2(torch, 110592, 216, 16 * 216)
+    phase_small_scf(torch)
+    launches, n_ip = phase_main(torch)
+    check(n_ip == 16 * 216, f"main path n_ip={n_ip}, K2 was timed at 3456")
+
+    kernels = [
+        dict(name="ao_collocate", route="cuda",
+             source="pyscf_isdf_tpu_torch/csrc/ao_collocate.cu",
+             replaces="pyscf_isdf_tpu/ops/pallas_ao.py:166",
+             launches=launches["ao_collocate"], max_abs_err=k1["err"],
+             ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
+             bound_by=k1["bound_by"], library_ms=None),
+        dict(name="robust_k_cross", route="cuda",
+             source="pyscf_isdf_tpu_torch/csrc/robust_k.cu",
+             replaces="pyscf_isdf_tpu/ops/pallas_robust_k.py:41",
+             launches=launches["robust_k_cross"], max_abs_err=k2["err"],
+             ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
+             bound_by=k2["bound_by"], library_ms=k2["library_ms"]),
+    ]
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,40 @@
+"""Canonical benchmark/validation systems.
+
+Geometries match the reference test-suite cells so golden energies carry
+over directly (e.g. pyscf/pbc/dft/test/test_krks.py:28-63 diamond cells).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from pyscf_isdf_tpu_torch.cell import build_cell
+
+
+def diamond_primitive(mesh=(17, 17, 17), basis="gth-szv", pseudo="gth-pade",
+                      ke_cutoff=None, **kw):
+    """2-atom fcc diamond primitive cell (a = 3.5668 A)."""
+    return build_cell(
+        a=[[0.0, 1.7834, 1.7834], [1.7834, 0.0, 1.7834], [1.7834, 1.7834, 0.0]],
+        atom=[["C", (0.0, 0.0, 0.0)], ["C", (0.8917, 0.8917, 0.8917)]],
+        basis=basis, pseudo=pseudo, mesh=mesh, ke_cutoff=ke_cutoff,
+        unit="Angstrom", **kw,
+    )
+
+
+def diamond_supercell(nrep=(2, 2, 2), mesh=None, basis="gth-szv",
+                      pseudo="gth-pade", ke_cutoff=None, **kw):
+    """n x n x n repetition of the primitive diamond cell (Gamma supercell)."""
+    a0 = np.array([[0.0, 1.7834, 1.7834], [1.7834, 0.0, 1.7834],
+                   [1.7834, 1.7834, 0.0]])
+    base = [np.zeros(3), np.array([0.8917, 0.8917, 0.8917])]
+    nrep = np.asarray(nrep)
+    atoms = []
+    for i in range(nrep[0]):
+        for j in range(nrep[1]):
+            for k in range(nrep[2]):
+                shift = i * a0[0] + j * a0[1] + k * a0[2]
+                for b in base:
+                    atoms.append(["C", tuple(b + shift)])
+    return build_cell(a=a0 * nrep[:, None], atom=atoms, basis=basis,
+                      pseudo=pseudo, mesh=mesh, ke_cutoff=ke_cutoff,
+                      unit="Angstrom", **kw)

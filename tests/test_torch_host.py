@@ -1,0 +1,91 @@
+"""Port host setup (S, T, hcore, coulG, Ewald, Madelung) == JAX reference.
+
+Both packages build the same cell from the same inputs; the port runs on
+the CPU in float64. Tolerance 1e-12: the same closed forms evaluated in a
+different summation order differ at the 1e-14 level.
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from pyscf_isdf_tpu.models import diamond_primitive as ref_diamond  # noqa: E402
+from pyscf_isdf_tpu.ops import coulomb as ref_coulomb  # noqa: E402
+from pyscf_isdf_tpu.ops.ft_ao import overlap_and_kinetic as ref_st  # noqa: E402
+from pyscf_isdf_tpu.scf import build_scf_system as ref_build  # noqa: E402
+
+from pyscf_isdf_tpu_torch.models import diamond_primitive  # noqa: E402
+from pyscf_isdf_tpu_torch.ops import coulomb  # noqa: E402
+from pyscf_isdf_tpu_torch.ops.ft_ao import overlap_and_kinetic  # noqa: E402
+from pyscf_isdf_tpu_torch.scf import build_scf_system  # noqa: E402
+
+MESH = (12, 12, 12)
+TOL = 1e-12
+
+
+@pytest.fixture(scope="module")
+def systems():
+    ref = ref_build(ref_diamond(mesh=MESH))
+    port = build_scf_system(diamond_primitive(mesh=MESH), device="cpu")
+    return ref, port
+
+
+@pytest.mark.parametrize("basis", ["gth-szv", "gth-dzvp"])
+def test_overlap_kinetic(basis):
+    S0, T0 = ref_st(ref_diamond(mesh=MESH, basis=basis))
+    S, T = overlap_and_kinetic(diamond_primitive(mesh=MESH, basis=basis),
+                               device="cpu")
+    assert np.abs(S.numpy() - S0).max() < TOL
+    assert np.abs(T.numpy() - T0).max() < TOL
+
+
+def test_hcore_and_coulomb_constants(systems):
+    ref, port = systems
+    assert np.abs(port.S.numpy() - ref.S).max() < TOL
+    assert np.abs(port.hcore.numpy() - ref.hcore).max() < TOL
+    assert np.abs(port.coulG.numpy() - ref.coulG).max() < TOL
+    assert abs(port.e_nuc - ref.e_nuc) < TOL
+    assert abs(port.madelung - ref.madelung) < TOL
+
+
+@pytest.mark.parametrize("exxdiv", [None, "ewald", "vcut_sph"])
+def test_coulG_exxdiv(exxdiv):
+    ref = ref_coulomb.get_coulG(ref_diamond(mesh=MESH), exxdiv=exxdiv)
+    out = coulomb.get_coulG(diamond_primitive(mesh=MESH), exxdiv=exxdiv)
+    assert np.abs(out - ref).max() < TOL
+
+
+def test_ewald_madelung_dzvp_cell():
+    assert abs(coulomb.ewald(diamond_primitive(mesh=MESH, basis="gth-dzvp"))
+               - ref_coulomb.ewald(ref_diamond(mesh=MESH, basis="gth-dzvp"))) < TOL
+
+
+def test_port_imports_no_jax():
+    """Importing every port module leaves jax and the JAX package out of
+    sys.modules (a subprocess: this test process has imported jax)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import pyscf_isdf_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'pyscf_isdf_tpu' or m.startswith('pyscf_isdf_tpu.')]\n"
+        "assert not bad, bad\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    res = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_entry_point_without_cuda_raises(monkeypatch):
+    """No device given and no CUDA: the entry point refuses instead of
+    silently running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_scf_system(diamond_primitive(mesh=MESH))
