@@ -13,9 +13,11 @@ run from the root of a checkout. Phases, each of which fails the script:
      primitive szv 16^3, dzvp 12^3, a hydrogen box with few lattice images,
      and diamond 3x3x3 szv 48^3 (every grid block);
   3. K2 (robust-K cross term) against its plain version at the main-path
-     shape and a padded shape, float64 (1e-10 relative) and float32
-     (1e-4 relative); CUDA-event timings of kernel, plain version and the
-     one-call library formulation;
+     shape, a padded shape and the gth-dzvp width (nao 702, n_ip 5616),
+     float64 (1e-10 relative; two launches bitwise equal) and float32
+     (1e-4 relative, first two shapes); ptxas' registers and spills of the
+     kernel; CUDA-event timings of kernel, plain version and the one-call
+     library formulation at the main and nao=702 shapes;
   4. a small cell's PBE0 robust-ISDF SCF on the card against the same SCF
      on the CPU (1e-8 Ha);
   5. the main path: build_scf_system(diamond 3x3x3, 48^3) and
@@ -131,17 +133,48 @@ def phase_k1(torch, cell_cases):
                 bound_by=by)
 
 
-def phase_k2(torch, ng, nao, nip):
-    """K2 against its plain version; returns the main-path numbers."""
+def time_k2(torch, args, label):
+    """CUDA-event times of K2, its plain version and the one-call library
+    formulation on the same float64 inputs, with the bound."""
     from pyscf_isdf_tpu_torch.ops.cuda_robust_k import (
         robust_k_cross, robust_k_cross_plain,
     )
 
+    aoR, B, Vxi = args
+    (ng, nao), nip = aoR.shape, B.shape[0]
+    res = dict(ms=cuda_time_ms(lambda: robust_k_cross(aoR, B, Vxi)),
+               plain_ms=cuda_time_ms(lambda: robust_k_cross_plain(aoR, B, Vxi)),
+               # the reference's unfused XLA path; timed here only, never
+               # called by the port
+               library_ms=cuda_time_ms(lambda: (Vxi.T * (aoR @ B.T)).T @ aoR))
+    flops = 4.0 * ng * nip * nao
+    nbytes = (ng * nao + 2 * nip * nao + nip * ng) * 8
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, "fp64_tensor")
+    log(f"K2 {label} f64 (ng={ng} nao={nao} n_ip={nip}): kernel {res['ms']:.3f} ms "
+        f"({flops / res['ms'] / 1e9:.1f} TFLOP/s), plain {res['plain_ms']:.3f} ms, "
+        f"library {res['library_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms "
+        f"({res['bound_by']})")
+    return res
+
+
+def phase_k2(torch, ng, nao, nip):
+    """K2 against its plain version; returns the main-path numbers."""
+    from pyscf_isdf_tpu_torch.ops import cuda_lib
+    from pyscf_isdf_tpu_torch.ops.cuda_robust_k import (
+        plan_f64, robust_k_cross, robust_k_cross_plain, slots_f64,
+    )
+
+    section = cuda_lib.build_log.partition("== robust_k.cu")[2].partition("== ")[0]
+    for line in section.splitlines():
+        if re.search(r"entry function|Used \d+ registers|spill", line):
+            log("ptxas robust_k.cu: " + line.strip())
     gen = torch.Generator(device="cuda").manual_seed(0)
+    dzvp = (ng, 702, 5616)              # gth-dzvp diamond 3x3x3 at c=8
     result = {}
-    for shape in ((ng, nao, nip), (4099, 37, 333)):
+    for shape in ((ng, nao, nip), (4099, 37, 333), dzvp):
         g_, a_, p_ = shape
-        for dtype in (torch.float64, torch.float32):
+        dtypes = (torch.float64,) if shape == dzvp else (torch.float64, torch.float32)
+        for dtype in dtypes:
             aoR = torch.randn(g_, a_, generator=gen, device="cuda", dtype=dtype)
             B = torch.randn(p_, a_, generator=gen, device="cuda", dtype=dtype)
             Vxi = torch.randn(p_, g_, generator=gen, device="cuda", dtype=dtype)
@@ -151,23 +184,23 @@ def phase_k2(torch, ng, nao, nip):
             err = float((out - ref).abs().max())
             rel = err / float(ref.abs().max())
             bar = 1e-10 if dtype == torch.float64 else 1e-4
+            plan = plan_f64(g_, a_, p_, slots_f64(a_, aoR.device)) \
+                if dtype == torch.float64 else ""
             log(f"K2 ng={g_} nao={a_} n_ip={p_} {dtype}: max|kernel-plain|="
-                f"{err:.3e} (relative {rel:.3e}, bar {bar:g})")
+                f"{err:.3e} (relative {rel:.3e}, bar {bar:g}) {plan}")
             check(rel < bar, f"K2 disagrees with its plain version at {shape} {dtype}")
-            if shape == (ng, nao, nip) and dtype == torch.float64:
-                result = dict(err=err, args=(aoR, B, Vxi))
-    aoR, B, Vxi = result.pop("args")
-    result["ms"] = cuda_time_ms(lambda: robust_k_cross(aoR, B, Vxi))
-    result["plain_ms"] = cuda_time_ms(lambda: robust_k_cross_plain(aoR, B, Vxi))
-    # one-call library formulation (the reference's unfused XLA path);
-    # timed here only, never called by the port
-    result["library_ms"] = cuda_time_ms(lambda: (Vxi.T * (aoR @ B.T)).T @ aoR)
-    nbytes = (ng * nao + 2 * nip * nao + nip * ng) * 8
-    result["bound_ms"], result["bound_by"] = bound_ms(
-        nbytes, 4.0 * ng * nip * nao, "fp64_tensor")
-    log(f"K2 main shape f64: kernel {result['ms']:.3f} ms, plain "
-        f"{result['plain_ms']:.3f} ms, library {result['library_ms']:.3f} ms, "
-        f"bound {result['bound_ms']:.3f} ms ({result['bound_by']})")
+            if dtype != torch.float64:
+                continue
+            if shape == (ng, nao, nip):
+                again = robust_k_cross(aoR, B, Vxi)
+                torch.cuda.synchronize()
+                same = torch.equal(out, again)
+                log(f"K2 main shape f64: two launches bitwise equal: {same}")
+                check(same, "K2 float64 is not deterministic")
+                result = dict(err=err, **time_k2(torch, (aoR, B, Vxi), "main shape"))
+            elif shape == dzvp:
+                result["dzvp"] = time_k2(torch, (aoR, B, Vxi), "nao=702 shape")
+            del out, ref
     del aoR, B, Vxi
     torch.cuda.empty_cache()
     return result

@@ -31,8 +31,12 @@ _SIGNATURES = {
     # coordsT, imgs, out, stream
     "ao_collocate_f64": (_I,) * 8 + (_P,) * 8,
     "ao_collocate_f32": (_I,) * 8 + (_P,) * 8,
+    # ng, nao, nip, nsplit, g_per_split, stages, width, cs, aoR, B, Vxi,
+    # partial, out, stream
+    "robust_k_cross_f64": (_I,) * 8 + (_P,) * 6,
+    # stages, width, cs -> blocks resident at once (negative on error)
+    "robust_k_cross_f64_slots": (_I,) * 3,
     # ng, nao, nip, nsplit, tp, aoR, B, Vxi, partial, out, stream
-    "robust_k_cross_f64": (_I,) * 5 + (_P,) * 6,
     "robust_k_cross_f32": (_I,) * 5 + (_P,) * 6,
 }
 

@@ -39,7 +39,8 @@ def _cell(build):
 
 @pytest.mark.parametrize("ng,nao,nip,tg,tp,seed",
                          [(1000, 30, 200, 256, 64, 0),   # tile-divisible
-                          (777, 11, 70, 128, 32, 1)])    # padded ng and n_ip
+                          (777, 11, 70, 128, 32, 1),     # padded ng and n_ip
+                          (300, 300, 40, 128, 32, 2)])   # nao > 256
 def test_cross_term_plain_vs_pallas(ng, nao, nip, tg, tp, seed):
     rng = np.random.default_rng(seed)
     aoR = rng.standard_normal((ng, nao))
