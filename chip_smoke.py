@@ -10,8 +10,14 @@ run from the root of a checkout. Phases, each of which fails the script:
      ``pyscf_isdf_tpu_torch/csrc`` (seconds printed);
   2. K1 (AO collocation) against its plain torch version, float64 (bar
      1e-12 absolute) and float32 (bar 1e-5 relative), on diamond
-     primitive szv 16^3, dzvp 12^3, a hydrogen box with few lattice images,
-     and diamond 3x3x3 szv 48^3 (every grid block);
+     primitive szv 16^3 and 17^3 (partial bricks), dzvp 12^3, a hydrogen
+     box with few lattice images, and diamond 3x3x3 szv 48^3 (every
+     brick), all on the brick plan of the uniform grid; float64 also on
+     the main cell's slab plan and on diamond 3x3x3 gth-dzvp 48^3 (nao
+     702). CUDA-event times of kernel and plain version at the main shape
+     on bricks and on the slab plan with every primitive kept, and at
+     gth-dzvp, each with the exponentials evaluated and needed, the bound
+     on the needed FP64 instructions, and ptxas' registers and spills;
   3. K2 (robust-K cross term) against its plain version at the main-path
      shape, a padded shape and the gth-dzvp width (nao 702, n_ip 5616),
      float64 (1e-10 relative; two launches bitwise equal) and float32
@@ -82,34 +88,54 @@ def bound_ms(nbytes, flops, peak):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_k1(torch, cell_cases):
-    """K1 against its plain version; returns the main-path numbers."""
+def k1_ptxas():
+    """ptxas' registers and spill bytes of each K1 instantiation, keyed by
+    (dtype letter, L, K); empty when the library was not built here."""
+    from pyscf_isdf_tpu_torch.ops import cuda_lib
+
+    section = cuda_lib.build_log.partition("== ao_collocate.cu")[2].partition("== ")[0]
+    res, key, spill = {}, None, 0
+    for line in section.splitlines():
+        m = re.search(r"ao_collocate_kernelI([df])Li(\d)ELi(\d)E", line)
+        if m and "Compiling entry function" in line:
+            key = (m.group(1), int(m.group(2)), int(m.group(3)))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and key:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key:
+            res[key] = (int(m.group(1)), spill)
+            key = None
+    return res
+
+
+def check_k1(torch, name, ev, dtype):
+    """Kernel against its plain version on every staged l; returns the
+    largest absolute difference."""
     from pyscf_isdf_tpu_torch.ops import cuda_ao
 
-    main = {}
-    for name, make_cell in cell_cases:
-        cell = make_cell()
-        for dtype in (torch.float64, torch.float32):
-            ev = cuda_ao.make_ao_evaluator(cell, dtype=dtype, device="cuda")
-            err = scale = 0.0
-            for args in ev.staged:
-                out = cuda_ao.collocate(*args)
-                torch.cuda.synchronize()
-                ref = cuda_ao.collocate_plain(*args)
-                err = max(err, float((out - ref).abs().max()))
-                scale = max(scale, float(ref.abs().max()))
-            if dtype == torch.float64:
-                ok = err < 1e-12
-                bar = "abs 1e-12"
-            else:
-                ok = err < 1e-5 * scale
-                bar = "rel 1e-5"
-            log(f"K1 {name} nao={cell.nao} ng={cell.ngrids} {dtype}: "
-                f"max|kernel-plain|={err:.3e} (max|plain|={scale:.3f}, bar {bar})")
-            check(ok, f"K1 disagrees with its plain version on {name} {dtype}")
-            if name == "diamond333" and dtype == torch.float64:
-                main = dict(evaluator=ev, err=err)
-    ev = main["evaluator"]
+    err = scale = 0.0
+    for args in ev.staged:
+        out = cuda_ao.collocate(*args)
+        torch.cuda.synchronize()
+        ref = cuda_ao.collocate_plain(*args)
+        err = max(err, float((out - ref).abs().max()))
+        scale = max(scale, float(ref.abs().max()))
+        del out, ref
+    if dtype == torch.float64:
+        ok, bar = err < 1e-12, "abs 1e-12"
+    else:
+        ok, bar = err < 1e-5 * scale, "rel 1e-5"
+    log(f"K1 {name} {dtype}: max|kernel-plain|={err:.3e} "
+        f"(max|plain|={scale:.3f}, bar {bar})")
+    check(ok, f"K1 disagrees with its plain version on {name} {dtype}")
+    return err
+
+
+def time_k1(torch, cell, ev, label, ptxas):
+    """CUDA-event times of K1 and its plain version on one float64 plan,
+    the work evaluated and needed, and the bound on the needed work."""
+    from pyscf_isdf_tpu_torch.ops import cuda_ao
 
     def run_kernel():
         for args in ev.staged:
@@ -119,18 +145,61 @@ def phase_k1(torch, cell_cases):
         for args in ev.staged:
             cuda_ao.collocate_plain(*args)
 
-    ms = cuda_time_ms(run_kernel, reps=7)
-    plain_ms = cuda_time_ms(run_plain)
-    n_exp, flops = cuda_ao.collocation_work(ev.plans, ev.block)
-    inputs = {t.data_ptr(): t for args in ev.staged for t in args[1:]}
-    nbytes = sum(t.numel() * t.element_size() for t in inputs.values())
-    nbytes += sum(p.ns * p.K * (2 * p.l + 1) for p in ev.plans) \
-        * ev.staged[0][5].shape[1] * 8
-    bms, by = bound_ms(nbytes, flops, "fp64")
-    log(f"K1 diamond333 f64: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bms:.3f} ms ({by}; {n_exp} exp, {flops} flop, {nbytes} B)")
-    return dict(err=main["err"], ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by)
+    res = dict(ms=cuda_time_ms(run_kernel, reps=7),
+               plain_ms=cuda_time_ms(run_plain, reps=3))
+    work = cuda_ao.collocation_work(cell, ev.plans, ev.dest, device="cuda")
+    # bytes: the grid coordinates read once, the AO rows written once;
+    # operations: FP64 instructions, an FMA counted as two flops
+    nbytes = (3 + sum(p.ns * p.K * (2 * p.l + 1) for p in ev.plans)) \
+        * cell.ngrids * 8
+    need, done = work["needed"], work["evaluated"]
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 2 * need["fp64_instr"], "fp64")
+    eval_ms, _ = bound_ms(nbytes, 2 * done["fp64_instr"], "fp64")
+    regs = "; ".join(f"l={p.l} K={p.K}: {ptxas[('d', p.l, p.K)][0]} registers, "
+                     f"{ptxas[('d', p.l, p.K)][1]} B spilled"
+                     for p in ev.plans if ("d", p.l, p.K) in ptxas)
+    log(f"K1 {label} f64 (nao={cell.nao} ng={cell.ngrids}): kernel "
+        f"{res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, bound "
+        f"{res['bound_ms']:.3f} ms ({res['bound_by']}; needed: {need['exp']} exp, "
+        f"{need['pairs']} pairs, {need['fp64_instr']} FP64 instr; {nbytes} B); "
+        f"evaluated: {done['exp']} exp, {done['pairs']} pairs, "
+        f"{done['fp64_instr']} FP64 instr ({eval_ms:.3f} ms at the FP64 peak); "
+        f"ptxas {regs or 'not built in this process'}")
+    return res
+
+
+def phase_k1(torch, cell_cases, main_cell, dzvp_cell):
+    """K1 against its plain version on every case (bricks), on the main
+    cell's slab plan, and at the gth-dzvp width; times at the main shape on
+    bricks and on the slab plan (every primitive kept), and at gth-dzvp.
+    Returns the main-path numbers."""
+    from pyscf_isdf_tpu_torch.ops import cuda_ao
+
+    ptxas = k1_ptxas()
+    for name, make_cell in cell_cases:
+        cell = make_cell()
+        for dtype in (torch.float64, torch.float32):
+            ev = cuda_ao.make_ao_evaluator(cell, dtype=dtype, device="cuda")
+            check_k1(torch, f"{name} bricks nao={cell.nao} mesh={cell.mesh}",
+                     ev, dtype)
+    cell = main_cell()
+    ev32 = cuda_ao.make_ao_evaluator(cell, dtype=torch.float32, device="cuda")
+    check_k1(torch, "diamond333 bricks (main path)", ev32, torch.float32)
+    del ev32
+    bricks = cuda_ao.make_ao_evaluator(cell, device="cuda")
+    err = check_k1(torch, "diamond333 bricks (main path)", bricks, torch.float64)
+    slab = cuda_ao.make_ao_evaluator(cell, coords=cell.uniform_grid(), device="cuda")
+    check_k1(torch, "diamond333 slab plan", slab, torch.float64)
+    res = dict(err=err, **time_k1(torch, cell, bricks, "main shape, bricks", ptxas))
+    res["slab"] = time_k1(torch, cell, slab, "main shape, slab plan", ptxas)
+    del bricks, slab
+    cell = dzvp_cell()
+    ev = cuda_ao.make_ao_evaluator(cell, device="cuda")
+    check_k1(torch, "diamond333 gth-dzvp bricks", ev, torch.float64)
+    res["dzvp"] = time_k1(torch, cell, ev, "gth-dzvp 3x3x3, bricks", ptxas)
+    del ev
+    torch.cuda.empty_cache()
+    return res
 
 
 def time_k2(torch, args, label):
@@ -314,14 +383,17 @@ def main():
 
     cases = [
         ("diamond_szv_16", lambda: diamond_primitive(mesh=(16, 16, 16))),
+        ("diamond_szv_17", lambda: diamond_primitive(mesh=(17, 17, 17))),
         ("diamond_dzvp_12", lambda: diamond_primitive(mesh=(12, 12, 12),
                                                       basis="gth-dzvp")),
         ("h_box_few_images", lambda: build_cell(
             [[40.0, 0, 0], [0, 40.0, 0], [0, 0, 40.0]],
             [["H", (20.0, 20.0, 20.0)]], "gth-szv", mesh=(16, 16, 16))),
-        ("diamond333", lambda: diamond_supercell((3, 3, 3), mesh=(48, 48, 48))),
     ]
-    k1 = phase_k1(torch, cases)
+    k1 = phase_k1(
+        torch, cases,
+        lambda: diamond_supercell((3, 3, 3), mesh=(48, 48, 48)),
+        lambda: diamond_supercell((3, 3, 3), mesh=(48, 48, 48), basis="gth-dzvp"))
     k2 = phase_k2(torch, 110592, 216, 16 * 216)
     phase_small_scf(torch)
     launches, n_ip = phase_main(torch)

@@ -1,23 +1,47 @@
-// Image-culled crystalline AO collocation (Gamma point, real).
+// Image-culled crystalline AO collocation (Gamma point, real): kernel K1.
 //
 // Replaces the TPU Pallas kernel _make_kernel of
 // pyscf_isdf_tpu/ops/pallas_ao.py. For shell s of angular momentum L with
-// K contractions and P primitives, and grid block b of NB points:
+// K contractions and P primitives, and slot i of grid block b (NB slots):
 //
-//   out[(s*K + k)*M + m, b*NB + i] =
-//       sum_{j < counts[s,b]} sum_p coeffs[s,p,k] exp(-exps[s,p] r^2) S_Lm(d)
+//   out[(s*K + k)*M + m, dest[b*NB + i]] =
+//       sum_{j < counts[s,b]} sum_{p < nprim[s,b,j], -exps[s,p] r^2 >= cuts[s]}
+//           coeffs[s,p,k] exp(-exps[s,p] r^2) S_Lm(d)
 //   d = (coordsT[:, b*NB + i] - centers[s]) - imgs[s, b, :, j],  M = 2L+1
 //
-// One CTA per (grid block, shell), one thread per grid point. The CTA loads
-// its trip count, its culled image list and the shell's exponents and
-// coefficients into shared memory; each thread keeps its K*M sums in
-// registers (the kernel is instantiated per L and K) and stores them to the
-// transposed (rows, ng_p) layout, so neighbouring threads write neighbouring
-// addresses. Bound: the exp evaluations, sum_{s,b} counts[s,b] * NB * P.
+// for each slot with 0 <= dest < ng; every grid point is one block's slot.
+//
+// What bounds it on the H100: FP64 instructions. There is no tensor-core
+// work, and exp(double) is a software sequence of 15 FP64 instructions
+// (14 DFMA and a DADD on its in-range path; tools/k1_exp_probe.cu counts
+// them from SASS) on 64 FP64 lanes per SM, so the time follows the number
+// of exponentials evaluated.
+// The host planner (ops/cuda_ao.py) keeps that number near what the inputs
+// need: on the uniform grid the blocks are compact 8x8x8 bricks, so each
+// (shell, brick) lists few images, and each listed image carries only the
+// prefix of the shell's primitives (sorted most diffuse first) whose bound
+// over the brick reaches 1e-16; an image with none left is not listed.
+// Inside that prefix each thread stops at its point's first primitive with
+// -a r^2 below the shell's cut (its term and every later one is below
+// 1e-16 there): divergent, but it saves the exponentials of the far side of
+// a brick, and measured faster (tools/k1_variants.py).
+//
+// One CTA of 128 threads per (block, shell), four slots a thread (fewer
+// threads a CTA measured faster, tools/k1_variants.py). The CTA loads its
+// trip count, image list and per-image primitive counts into shared memory
+// with the shell's exponents and coefficients. Every thread of the CTA
+// walks the same list with the same primitive counts, so a primitive or
+// image the planner drops costs no divergence; only the per-point cut
+// diverges. Each thread keeps its K*M sums in registers (the kernel is
+// instantiated per L and K) and stores them at its point's flat grid index
+// in the transposed (rows, ng) layout; in a full brick a warp holds four
+// rows of eight neighbouring points, so its stores are 64-byte runs.
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
+
+constexpr int kThreads = 128;
 
 __device__ __forceinline__ double gexp(double x) { return exp(x); }
 __device__ __forceinline__ float gexp(float x) { return expf(x); }
@@ -59,42 +83,55 @@ __device__ __forceinline__ void solid_harmonics(T dx, T dy, T dz, T* ang) {
 }
 
 template <typename T, int L, int K>
-__global__ void ao_collocate_kernel(const int* __restrict__ counts,
-                                    const T* __restrict__ centers,
-                                    const T* __restrict__ exps,
-                                    const T* __restrict__ coeffs,
-                                    const T* __restrict__ coordsT,
-                                    const T* __restrict__ imgs,
-                                    T* __restrict__ out,
-                                    int P, int nb, int NB, int imax, int ng_p) {
+__global__ void __launch_bounds__(kThreads)
+ao_collocate_kernel(const int* __restrict__ counts,
+                    const int* __restrict__ nprim,
+                    const T* __restrict__ cuts,
+                    const T* __restrict__ centers,
+                    const T* __restrict__ exps,
+                    const T* __restrict__ coeffs,
+                    const T* __restrict__ coordsT,
+                    const int* __restrict__ dest,
+                    const T* __restrict__ imgs,
+                    T* __restrict__ out,
+                    int P, int nb, int NB, int imax, int ng) {
   constexpr int M = 2 * L + 1;
   extern __shared__ unsigned char smem_raw[];
-  T* s_img = reinterpret_cast<T*>(smem_raw);   // (3, imax)
-  T* s_exp = s_img + 3 * imax;                 // (P,)
-  T* s_coef = s_exp + P;                       // (P, K)
+  T* s_img = reinterpret_cast<T*>(smem_raw);             // (3, imax)
+  T* s_nexp = s_img + 3 * imax;                          // (P,) -exponents
+  T* s_coef = s_nexp + P;                                // (P, K)
+  int* s_np = reinterpret_cast<int*>(s_coef + P * K);    // (imax,)
 
   const int b = blockIdx.x;
   const int s = blockIdx.y;
-  const int cnt = counts[s * nb + b];
-  const T* img = imgs + (static_cast<size_t>(s) * nb + b) * 3 * imax;
+  const size_t sb = static_cast<size_t>(s) * nb + b;
+  const int cnt = min(counts[sb], imax);
+  const T* img = imgs + sb * 3 * imax;
+  const int* np_sb = nprim + sb * imax;
   for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
     s_img[j] = img[j];
     s_img[imax + j] = img[imax + j];
     s_img[2 * imax + j] = img[2 * imax + j];
+    s_np[j] = min(np_sb[j], P);
   }
-  for (int p = threadIdx.x; p < P; p += blockDim.x) s_exp[p] = exps[s * P + p];
+  for (int p = threadIdx.x; p < P; p += blockDim.x) s_nexp[p] = -exps[s * P + p];
   for (int i = threadIdx.x; i < P * K; i += blockDim.x)
     s_coef[i] = coeffs[s * P * K + i];
   __syncthreads();
 
+  const T cut = cuts[s];
   const T cx = centers[3 * s + 0];
   const T cy = centers[3 * s + 1];
   const T cz = centers[3 * s + 2];
-  T* out_s = out + static_cast<size_t>(s) * K * M * ng_p;
-  for (int g = b * NB + threadIdx.x; g < (b + 1) * NB; g += blockDim.x) {
+  const size_t ntot = static_cast<size_t>(nb) * NB;
+  T* out_s = out + static_cast<size_t>(s) * K * M * ng;
+  for (int i = threadIdx.x; i < NB; i += blockDim.x) {
+    const size_t g = static_cast<size_t>(b) * NB + i;
+    const int dst = dest[g];
+    if (dst < 0 || dst >= ng) continue;
     const T x = coordsT[g] - cx;
-    const T y = coordsT[ng_p + g] - cy;
-    const T z = coordsT[2 * ng_p + g] - cz;
+    const T y = coordsT[ntot + g] - cy;
+    const T z = coordsT[2 * ntot + g] - cz;
     T acc[K * M];
 #pragma unroll
     for (int r = 0; r < K * M; ++r) acc[r] = T(0);
@@ -103,11 +140,14 @@ __global__ void ao_collocate_kernel(const int* __restrict__ counts,
       const T dy = y - s_img[imax + j];
       const T dz = z - s_img[2 * imax + j];
       const T r2 = dx * dx + dy * dy + dz * dz;
+      const int npj = s_np[j];
       T rad[K];
 #pragma unroll
       for (int k = 0; k < K; ++k) rad[k] = T(0);
-      for (int p = 0; p < P; ++p) {
-        const T e = gexp(-s_exp[p] * r2);
+      for (int p = 0; p < npj; ++p) {
+        const T arg = s_nexp[p] * r2;
+        if (arg < cut) break;
+        const T e = gexp(arg);
 #pragma unroll
         for (int k = 0; k < K; ++k) rad[k] += e * s_coef[p * K + k];
       }
@@ -121,37 +161,44 @@ __global__ void ao_collocate_kernel(const int* __restrict__ counts,
     }
 #pragma unroll
     for (int r = 0; r < K * M; ++r)
-      out_s[static_cast<size_t>(r) * ng_p + g] = acc[r];
+      out_s[static_cast<size_t>(r) * ng + dst] = acc[r];
   }
 }
 
 template <typename T, int L, int K>
-cudaError_t launch_lk(int P, int ns, int nb, int NB, int imax, int ng_p,
-                      const int* counts, const T* centers, const T* exps,
-                      const T* coeffs, const T* coordsT, const T* imgs, T* out,
+cudaError_t launch_lk(int P, int ns, int nb, int NB, int imax, int ng,
+                      const int* counts, const int* nprim, const T* cuts,
+                      const T* centers, const T* exps, const T* coeffs,
+                      const T* coordsT,
+                      const int* dest, const T* imgs, T* out,
                       cudaStream_t stream) {
-  const size_t smem = (3 * static_cast<size_t>(imax) + P + P * K) * sizeof(T);
+  const size_t smem = (3 * static_cast<size_t>(imax) + P + P * K) * sizeof(T)
+                      + static_cast<size_t>(imax) * sizeof(int);
   auto kernel = ao_collocate_kernel<T, L, K>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const int threads = NB < 512 ? NB : 512;
+  const int threads = NB < kThreads ? NB : kThreads;
   kernel<<<dim3(nb, ns), threads, smem, stream>>>(
-      counts, centers, exps, coeffs, coordsT, imgs, out, P, nb, NB, imax, ng_p);
+      counts, nprim, cuts, centers, exps, coeffs, coordsT, dest, imgs, out, P,
+      nb, NB, imax, ng);
   return cudaGetLastError();
 }
 
 template <typename T, int L>
-cudaError_t launch_l(int K, int P, int ns, int nb, int NB, int imax, int ng_p,
-                     const int* counts, const T* centers, const T* exps,
-                     const T* coeffs, const T* coordsT, const T* imgs, T* out,
+cudaError_t launch_l(int K, int P, int ns, int nb, int NB, int imax, int ng,
+                     const int* counts, const int* nprim, const T* cuts,
+                     const T* centers, const T* exps, const T* coeffs,
+                     const T* coordsT,
+                     const int* dest, const T* imgs, T* out,
                      cudaStream_t stream) {
-#define PIT_AO_K(KK)                                                        \
-  case KK:                                                                  \
-    return launch_lk<T, L, KK>(P, ns, nb, NB, imax, ng_p, counts, centers,  \
-                               exps, coeffs, coordsT, imgs, out, stream);
+#define PIT_AO_K(KK)                                                          \
+  case KK:                                                                    \
+    return launch_lk<T, L, KK>(P, ns, nb, NB, imax, ng, counts, nprim, cuts,  \
+                               centers, exps, coeffs, coordsT, dest, imgs,    \
+                               out, stream);
   switch (K) {
     PIT_AO_K(1)
     PIT_AO_K(2)
@@ -164,24 +211,31 @@ cudaError_t launch_l(int K, int P, int ns, int nb, int NB, int imax, int ng_p,
 }
 
 template <typename T>
-int launch(int l, int K, int P, int ns, int nb, int NB, int imax, int ng_p,
-           const void* counts, const void* centers, const void* exps,
-           const void* coeffs, const void* coordsT, const void* imgs, void* out,
-           void* stream) {
+int launch(int l, int K, int P, int ns, int nb, int NB, int imax, int ng,
+           const void* counts, const void* nprim, const void* cuts,
+           const void* centers,
+           const void* exps, const void* coeffs, const void* coordsT,
+           const void* dest, const void* imgs, void* out, void* stream) {
   const int* c = static_cast<const int*>(counts);
+  const int* np = static_cast<const int*>(nprim);
+  const T* cu = static_cast<const T*>(cuts);
   const T* ce = static_cast<const T*>(centers);
   const T* ex = static_cast<const T*>(exps);
   const T* co = static_cast<const T*>(coeffs);
   const T* xyz = static_cast<const T*>(coordsT);
+  const int* d = static_cast<const int*>(dest);
   const T* im = static_cast<const T*>(imgs);
   T* o = static_cast<T*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ns <= 0 || nb <= 0 || NB <= 0 || imax <= 0 || P <= 0 || ng < 0 ||
+      ns > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   switch (l) {
-    case 0: err = launch_l<T, 0>(K, P, ns, nb, NB, imax, ng_p, c, ce, ex, co, xyz, im, o, st); break;
-    case 1: err = launch_l<T, 1>(K, P, ns, nb, NB, imax, ng_p, c, ce, ex, co, xyz, im, o, st); break;
-    case 2: err = launch_l<T, 2>(K, P, ns, nb, NB, imax, ng_p, c, ce, ex, co, xyz, im, o, st); break;
-    case 3: err = launch_l<T, 3>(K, P, ns, nb, NB, imax, ng_p, c, ce, ex, co, xyz, im, o, st); break;
+    case 0: err = launch_l<T, 0>(K, P, ns, nb, NB, imax, ng, c, np, cu, ce, ex, co, xyz, d, im, o, st); break;
+    case 1: err = launch_l<T, 1>(K, P, ns, nb, NB, imax, ng, c, np, cu, ce, ex, co, xyz, d, im, o, st); break;
+    case 2: err = launch_l<T, 2>(K, P, ns, nb, NB, imax, ng, c, np, cu, ce, ex, co, xyz, d, im, o, st); break;
+    case 3: err = launch_l<T, 3>(K, P, ns, nb, NB, imax, ng, c, np, cu, ce, ex, co, xyz, d, im, o, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -190,17 +244,21 @@ int launch(int l, int K, int P, int ns, int nb, int NB, int imax, int ng_p,
 }  // namespace
 
 extern "C" int ao_collocate_f64(int l, int K, int P, int ns, int nb, int NB,
-                                int imax, int ng_p, void* counts, void* centers,
-                                void* exps, void* coeffs, void* coordsT,
-                                void* imgs, void* out, void* stream) {
-  return launch<double>(l, K, P, ns, nb, NB, imax, ng_p, counts, centers, exps,
-                        coeffs, coordsT, imgs, out, stream);
+                                int imax, int ng, void* counts, void* nprim,
+                                void* cuts, void* centers, void* exps,
+                                void* coeffs,
+                                void* coordsT, void* dest, void* imgs,
+                                void* out, void* stream) {
+  return launch<double>(l, K, P, ns, nb, NB, imax, ng, counts, nprim, cuts, centers,
+                        exps, coeffs, coordsT, dest, imgs, out, stream);
 }
 
 extern "C" int ao_collocate_f32(int l, int K, int P, int ns, int nb, int NB,
-                                int imax, int ng_p, void* counts, void* centers,
-                                void* exps, void* coeffs, void* coordsT,
-                                void* imgs, void* out, void* stream) {
-  return launch<float>(l, K, P, ns, nb, NB, imax, ng_p, counts, centers, exps,
-                       coeffs, coordsT, imgs, out, stream);
+                                int imax, int ng, void* counts, void* nprim,
+                                void* cuts, void* centers, void* exps,
+                                void* coeffs,
+                                void* coordsT, void* dest, void* imgs,
+                                void* out, void* stream) {
+  return launch<float>(l, K, P, ns, nb, NB, imax, ng, counts, nprim, cuts, centers,
+                       exps, coeffs, coordsT, dest, imgs, out, stream);
 }

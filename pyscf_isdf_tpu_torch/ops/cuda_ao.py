@@ -4,22 +4,48 @@ Replaces the TPU Pallas kernel ``_make_kernel`` of
 ``pyscf_isdf_tpu/ops/pallas_ao.py`` (launched by ``make_ao_evaluator``).
 The lattice-image sum  ao_mu(r_g) = sum_T phi_mu(r_g - A_mu - T)  is
 irregular: each (shell, grid block) pair sees only the few images whose
-translated centre lies within the shell's decay radius. The host planner
-:func:`plan_ao_blocks` (unchanged semantics: per-(shell, block) culled
-image lists padded to IMAX with a dummy far image at 1e6, and a trip
-count) feeds one launch per angular momentum l.
+translated centre lies within the shell's decay radius, and of an image
+far from the block only the diffuse primitives reach it.
 
-Kernel (``csrc/ao_collocate.cu``): one CTA per (grid block, shell), one
-thread per grid point. The CTA loads its own trip count and culled image
-list into shared memory (the TPU's scalar prefetch) with the shell's
-exponents and coefficients; the image loop accumulates the K(2l+1)
-values in registers (instantiated per l and K) and the CTA writes the
-transposed (rows, ngrids) layout, so neighbouring threads store
-neighbouring addresses. The permutation to (ngrids, nao) AO order is done
-outside the kernel. What bounds it on the card is the exponentials:
-sum_{s,b} counts[s,b] * NB * P evaluations of exp,
-which the culling keeps to the images that matter
-(:func:`collocation_work`).
+What bounds the kernel on the H100 is FP64 instructions: it has no
+tensor-core work, and each ``exp(double)`` is a software sequence of
+:data:`EXP_FP64_INSTR` FP64 instructions (counted from SASS by
+``tools/k1_exp_probe.cu``) on 64 FP64 lanes per SM. Its time therefore
+follows the number of exponentials it evaluates, and the planners decide
+that number. Two planners fill the same kernel arguments:
+
+* :func:`plan_ao_bricks`, for the uniform FFT grid (the main path): blocks
+  are compact bricks of at most 8x8x8 points (each axis is cut at the
+  FFT-order wrap, index ceil(n/2), so no brick spans the cell). Per
+  (shell, brick) it keeps the reference's image cull (images within
+  rcut + brick radius of the brick centre), and then per kept image the
+  prefix of the shell's primitives, sorted most diffuse first, that
+  contains every primitive whose bound over the brick,
+  max_k |c_pk| exp(-a_p d_min^2) max(1, r_max)^l, reaches :data:`DROP`
+  (d_min, r_max: nearest and farthest distance from the image centre to
+  the brick). Since |S_lm(d)| <= |d|^l for l <= 3, every dropped term is
+  below DROP = 1e-16 in absolute value at every point of the brick. An
+  image with no primitive left leaves the list. It also sets a per-shell
+  cut: a point stops at its first primitive with -a r^2 below it, where
+  that term and every later one is below DROP.
+* :func:`plan_ao_blocks`, for explicit coordinates: the reference's
+  semantics unchanged (slabs of ``block`` consecutive points, every
+  primitive of every kept image, no cut).
+
+Either plan gives, per (shell, block), the trip count and the image list
+padded to IMAX with a dummy far image at 1e6, the primitive count of each
+listed image, the shell's cut, and per block slot the point's coordinates
+and its flat grid index (-1 for a slot with no point).
+:func:`collocation_work` counts the work a plan lets the kernel evaluate
+and the work the inputs need; the bound on the card is the second.
+
+Kernel (``csrc/ao_collocate.cu``): one CTA per (block, shell); the CTA
+loads its image list and primitive counts into shared memory, so every
+warp walks the same trip counts and a primitive the planner drops costs
+no divergence. The K(2l+1) sums live in registers (instantiated per l and
+K) and each thread stores them at its point's flat grid index in the
+transposed (rows, ngrids) layout; the permutation to (ngrids, nao) AO
+order is one gather outside.
 
 On a CPU tensor :func:`collocate` runs :func:`collocate_plain`, the same
 function in plain torch; on a CUDA tensor it launches the kernel or
@@ -27,6 +53,7 @@ raises.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -39,6 +66,14 @@ from pyscf_isdf_tpu_torch.ops.solid_harmonics import solid_harmonics
 
 MAX_L = 3          # kernel instantiations: l = 0..3
 MAX_K = 4          # and 1..4 contractions per shell
+BRICK = 8          # brick edge (points) of the uniform-grid planner
+DROP = 1e-16       # bound on each primitive term the brick planner drops
+
+# FP64 instructions of one exp(double) on sm_90a (nvcc 12.8) on its path for
+# arguments in [-708, 0]: 14 DFMA and 1 DADD (SASS, tools/k1_exp_probe.cu)
+EXP_FP64_INSTR = 15
+# per (point, image) pair: displacement (3) and r^2 (3), the harmonics
+_ANG_INSTR = {0: 0, 1: 3, 2: 12, 3: 26}
 
 
 @dataclass(frozen=True, eq=False)
@@ -52,174 +87,339 @@ class _LPlan:
     coeffs: np.ndarray      # (ns, P, K)
     imgs: np.ndarray        # (ns, nb, 3, IMAX) culled image lists
     counts: np.ndarray      # (ns, nb) int32
+    nprim: np.ndarray       # (ns, nb, IMAX) int32 primitives of each listed image
+    cuts: np.ndarray        # (ns,) least -a r^2 a point evaluates (-inf: all)
     cols: np.ndarray        # (ns*K*(2l+1),) AO column for each output row
 
 
-def plan_ao_blocks(cell, coords=None, block: int = 512, imax: int | None = None):
-    """Host-side planning: pack shells per l and cull images per block."""
-    packed = PackedBasis.from_cell(cell)
-    if coords is None:
-        coords = cell.uniform_grid()
-    ng = coords.shape[0]
-    nb = -(-ng // block)
-    images = cell.lattice_images()
+def _block_geometry(coords, dest):
+    """Centre and radius of each block over its points (dest >= 0)."""
+    valid = dest >= 0
+    pts = coords[np.where(valid, dest, dest[:, :1])]           # (nb, NB, 3)
+    bcent = (pts * valid[..., None]).sum(axis=1) / valid.sum(axis=1)[:, None]
+    brad = np.sqrt(((pts - bcent[:, None]) ** 2).sum(-1).max(axis=1))
+    return bcent, brad
 
-    # block centers and radii
-    npad = (-ng) % block
-    cpad = np.pad(coords, ((0, npad), (0, 0)), mode="edge")
-    cblk = cpad.reshape(nb, block, 3)
-    bcent = cblk.mean(axis=1)                                  # (nb, 3)
-    brad = np.sqrt(((cblk - bcent[:, None]) ** 2).sum(-1).max(axis=1))
 
-    groups: dict[int, list] = {}
-    for ish, sh in enumerate(cell.shells):
-        groups.setdefault(sh.l, []).append((ish, sh))
-
-    plans = []
-    for l in packed.ls:
-        shells = groups[l]
-        ns = len(shells)
-        P = packed.exps[l].shape[1]
-        K = packed.coeffs[l].shape[2]
-        M = 2 * l + 1
-        rcuts = np.array([shell_rcut(sh) for _, sh in shells])
-        # |t - b|^2 = |t|^2 + |b|^2 - 2 t.b with the cross term as a
-        # batched GEMM (a broadcast difference array is a large temporary)
-        ctr = packed.centers[l]                                # (ns, 3)
-        tc = ctr[:, None, :] + images[None, :, :]              # (ns, nimg, 3)
-        tnorm = np.einsum("sti,sti->st", tc, tc)               # (ns, nimg)
-        bnorm = np.einsum("bi,bi->b", bcent, bcent)            # (nb,)
-        cross = np.matmul(bcent, tc.transpose(0, 2, 1))        # (ns, nb, ni)
-        d2 = tnorm[:, None, :] + bnorm[None, :, None] - 2.0 * cross
-        rmax = rcuts[:, None, None] + brad[None, :, None]
-        keep = d2 <= rmax * rmax                               # (ns, nb, nimg)
-        counts = keep.sum(axis=2).astype(np.int32)
-        cmax = int(counts.max()) if counts.size else 0
-        IMAX = imax or max(128, -(-cmax // 128) * 128)
-        if cmax > IMAX:
-            raise ValueError(f"IMAX={IMAX} < required {cmax}")
-        # kept images first in each list: argpartition pulls them into the
-        # leading slots, a stable argsort of that slice orders them
-        nimg = keep.shape[2]
-        width = min(IMAX, nimg)        # cells with few images keep them all
+def _plan_l(cell, packed, l, shells, images, bcent, brad, imax, drop):
+    """Cull images per (shell, block); with ``drop`` also primitives."""
+    nb = bcent.shape[0]
+    ns = len(shells)
+    centers, exps, coeffs = packed.centers[l], packed.exps[l], packed.coeffs[l]
+    P, K = exps.shape[1], coeffs.shape[2]
+    M = 2 * l + 1
+    rcuts = np.array([shell_rcut(sh) for _, sh in shells])
+    # |t - b|^2 = |t|^2 + |b|^2 - 2 t.b with the cross term as a
+    # batched GEMM (a broadcast difference array is a large temporary)
+    tc = centers[:, None, :] + images[None, :, :]              # (ns, nimg, 3)
+    tnorm = np.einsum("sti,sti->st", tc, tc)                   # (ns, nimg)
+    bnorm = np.einsum("bi,bi->b", bcent, bcent)                # (nb,)
+    cross = np.matmul(bcent, tc.transpose(0, 2, 1))            # (ns, nb, ni)
+    d2 = tnorm[:, None, :] + bnorm[None, :, None] - 2.0 * cross
+    rmax = rcuts[:, None, None] + brad[None, :, None]
+    keep = d2 <= rmax * rmax                                   # (ns, nb, nimg)
+    nprim = keep * np.int32(P)
+    cuts = np.full(ns, -np.inf)
+    if drop is not None:
+        # most diffuse first, padding primitives (zero coefficients) last
+        cmax = np.abs(coeffs).max(axis=2)                      # (ns, P)
+        perm = np.argsort(np.where(cmax > 0, exps, np.inf), axis=1, kind="stable")
+        exps = np.take_along_axis(exps, perm, axis=1)
+        coeffs = np.take_along_axis(coeffs, perm[:, :, None], axis=1)
+        cmax = np.take_along_axis(cmax, perm, axis=1)
+        s, b, t = np.nonzero(keep)
+        dist = np.sqrt(np.maximum(d2[s, b, t], 0.0))
+        dmin = np.maximum(dist - brad[b], 0.0)
+        rfar = np.maximum(dist + brad[b], 1.0)
+        bound = cmax[s] * np.exp(-exps[s] * (dmin * dmin)[:, None]) \
+            * (rfar ** l)[:, None]                             # (nkept, P)
+        surv = bound >= drop
+        reach = surv.any(axis=1)
+        nprim[s, b, t] = np.where(reach, P - np.argmax(surv[:, ::-1], axis=1), 0)
+        keep = nprim > 0
+        s, b, t = s[reach], b[reach], t[reach]     # kept, in (s, b, t) order
+        # per-point cut: with r <= R (the farthest brick point of any kept
+        # image), c_pk exp(-a_p r^2) S_lm < cmax_s exp(cut) R^l = drop when
+        # -a_p r^2 < cut, and so is every later (tighter) primitive
+        if drop > 0:
+            rfar_s = np.ones(ns)
+            np.maximum.at(rfar_s, s, rfar[reach])
+            cuts = np.log(drop) - np.log(cmax.max(axis=1)) - l * np.log(rfar_s)
+    counts = keep.sum(axis=2).astype(np.int32)
+    cmax_img = int(counts.max()) if counts.size else 0
+    IMAX = imax or max(128, -(-cmax_img // 128) * 128)
+    if cmax_img > IMAX:
+        raise ValueError(f"IMAX={IMAX} < required {cmax_img}")
+    nimg = keep.shape[2]
+    width = min(IMAX, nimg)        # cells with few images keep them all
+    wl = min(max(cmax_img, 1), width)              # slots any list uses
+    if drop is None:
+        # the reference's order: argpartition pulls the kept images into
+        # the leading slots, a stable argsort of that slice orders them
         order = np.argpartition(~keep, width - 1, axis=2)[:, :, :width]
         sub = np.take_along_axis(~keep, order, axis=2)
         order = np.take_along_axis(
-            order, np.argsort(sub, axis=2, kind="stable"), axis=2)
-        imgs = np.moveaxis(images.T[:, order], 0, 3)   # (ns, nb, width, 3)
-        slot = np.arange(width)[None, None, :]
-        imgs[slot >= counts[:, :, None]] = 1e6     # dummy far image
-        if width < IMAX:               # pad dummy slots up to IMAX
-            imgs = np.concatenate(
-                [imgs, np.full((ns, nb, IMAX - width, 3), 1e6)], axis=2)
-        imgs = np.ascontiguousarray(imgs.transpose(0, 1, 3, 2))
-        # output rows (s-major, then k, then m) -> AO columns
-        cols = []
-        for ish, sh in shells:
-            base = cell.ao_loc[ish]
-            for k in range(K):
-                for m in range(M):
-                    cols.append(base + k * M + m if k < sh.nctr else -1)
-        plans.append(_LPlan(
-            l=l, ns=ns, P=P, K=K,
-            centers=packed.centers[l],
-            exps=packed.exps[l],
-            coeffs=packed.coeffs[l],
-            imgs=imgs, counts=counts, cols=np.array(cols, dtype=np.int64),
-        ))
-    return plans, nb, block
+            order, np.argsort(sub, axis=2, kind="stable")[:, :, :wl], axis=2)
+    else:
+        # kept images in index order: a triple's slot is its rank in its list
+        order = np.zeros((ns, nb, wl), dtype=np.int64)
+        first = np.cumsum(counts.ravel()) - counts.ravel()
+        order[s, b, np.arange(s.size) - first[s * nb + b]] = t
+    live = np.arange(wl)[None, None, :] < counts[:, :, None]
+    imgs = np.full((ns, nb, 3, IMAX), 1e6)         # dummy far image
+    imgs[..., :wl] = np.where(live[:, :, None], images.T[:, order]
+                              .transpose(1, 2, 0, 3), 1e6)
+    prims = np.zeros((ns, nb, IMAX), dtype=np.int32)
+    prims[..., :wl] = np.where(live, np.take_along_axis(nprim, order, axis=2), 0)
+    # output rows (s-major, then k, then m) -> AO columns
+    cols = []
+    for ish, sh in shells:
+        base = cell.ao_loc[ish]
+        for k in range(K):
+            for m in range(M):
+                cols.append(base + k * M + m if k < sh.nctr else -1)
+    return _LPlan(l=l, ns=ns, P=P, K=K, centers=centers, exps=exps,
+                  coeffs=coeffs, imgs=imgs, counts=counts, nprim=prims,
+                  cuts=cuts, cols=np.array(cols, dtype=np.int64))
 
 
-_ANG_FLOPS = {0: 0, 1: 3, 2: 12, 3: 26}   # solid harmonics per point
+def _plans(cell, coords, dest, imax, drop):
+    packed = PackedBasis.from_cell(cell)
+    images = cell.lattice_images()
+    bcent, brad = _block_geometry(coords, dest)
+    groups: dict[int, list] = {}
+    for ish, sh in enumerate(cell.shells):
+        groups.setdefault(sh.l, []).append((ish, sh))
+    return [_plan_l(cell, packed, l, groups[l], images, bcent, brad, imax, drop)
+            for l in packed.ls]
 
 
-def collocation_work(plans, block: int) -> tuple[int, int]:
-    """(exp evaluations, floating-point operations) of the kernels on this
-    plan: per live (shell, block, image, point) 8 flops for the
-    displacement and r^2, per primitive one product, one exp (counted as
-    one operation) and a K-wide FMA, the harmonics, and a K*M-wide FMA."""
-    n_exp = flops = 0
+def slab_slots(ng: int, block: int = 512) -> np.ndarray:
+    """(nb, block) slots of the reference's blocks: consecutive flat
+    indices, -1 past the last point."""
+    nb = -(-ng // block)
+    dest = np.arange(nb * block).reshape(nb, block)
+    dest[dest >= ng] = -1
+    return dest
+
+
+def plan_ao_blocks(cell, coords=None, block: int = 512, imax: int | None = None):
+    """The reference's host planning: pack shells per l and cull images per
+    slab of ``block`` consecutive points, every primitive kept."""
+    if coords is None:
+        coords = cell.uniform_grid()
+    ng = coords.shape[0]
+    dest = slab_slots(ng, block)
+    # the reference pads the last slab with copies of the last point, and
+    # they count in its centre and radius
+    plans = _plans(cell, coords, np.where(dest >= 0, dest, ng - 1), imax, None)
+    return plans, dest.shape[0], block
+
+
+def _axis_runs(n: int, brick: int) -> list:
+    """Brick edges along one mesh axis. FFT order jumps from +1/2 to -1/2
+    at index ceil(n/2), so each half is cut on its own, into near-equal
+    runs of at most ``brick`` indices."""
+    h = -(-n // 2)
+    runs = []
+    for lo, hi in ((0, h), (h, n)):
+        if hi > lo:
+            runs += np.array_split(np.arange(lo, hi), -(-(hi - lo) // brick))
+    return runs
+
+
+def brick_slots(mesh) -> np.ndarray:
+    """(nb, BRICK**3) flat grid index of each slot of each brick of the
+    uniform grid (C order within the brick), -1 past the brick's points."""
+    runs = [_axis_runs(int(n), BRICK) for n in mesh]
+    n1, n2 = int(mesh[1]), int(mesh[2])
+    NB = BRICK ** 3
+    slots = []
+    for r0 in runs[0]:
+        for r1 in runs[1]:
+            for r2 in runs[2]:
+                idx = ((r0[:, None, None] * n1 + r1[None, :, None]) * n2
+                       + r2[None, None, :]).ravel()
+                slots.append(np.pad(idx, (0, NB - idx.size), constant_values=-1))
+    return np.array(slots, dtype=np.int64)
+
+
+def plan_ao_bricks(cell, drop: float = DROP):
+    """Host planning on the uniform grid: compact bricks, images culled per
+    (shell, brick), then primitives per image (terms below ``drop`` over
+    the whole brick; ``drop=0`` keeps them all). Returns (per-l plans,
+    slots (nb, BRICK**3))."""
+    dest = brick_slots(cell.mesh)
+    return _plans(cell, cell.uniform_grid(), dest, None, drop), dest
+
+
+def _instr(l: int, K: int, pairs, n_exp):
+    """FP64 instructions of the kernel body: per (point, image) pair the
+    displacement, r^2, harmonics and K(2l+1) accumulations; per primitive
+    the product -a r^2, the exp and K accumulations."""
+    return pairs * (6 + _ANG_INSTR[l] + K * (2 * l + 1)) \
+        + n_exp * (1 + EXP_FP64_INSTR + K)
+
+
+def needed_work(cell, device=None) -> dict:
+    """What the inputs need on the uniform grid, whatever the blocks: the
+    (point, image, primitive) triples with the image within the shell's
+    rcut of the point and max_k |c_pk| exp(-a_p r^2) max(1, r)^l >= DROP,
+    and the (point, image) pairs with at least one such primitive. Chunked
+    torch on ``device``; measurement code, called by nothing on the main
+    path."""
+    device = resolve_device(device)
+    coords = cell.uniform_grid()
+    packed = PackedBasis.from_cell(cell)
+    images = cell.lattice_images()
+    kw = dict(dtype=torch.float64, device=device)
+    pts = torch.as_tensor(coords, **kw)
+    # points lie within reach of the origin: prefilter images per shell
+    reach = float(np.sqrt((coords ** 2).sum(axis=1).max()))
+    log_drop = math.log(DROP)
+    chunk = 1 << 25                     # elements of the largest temporary
+    n_exp = pairs = instr = 0
+    for l in packed.ls:
+        K = packed.coeffs[l].shape[2]
+        s_exp = s_pairs = 0
+        for sh in cell.shells:
+            if sh.l != l:
+                continue
+            rc = shell_rcut(sh)
+            cmax = np.abs(sh.coeffs).max(axis=1)
+            alive = cmax > 0
+            a = torch.as_tensor(sh.exps[alive], **kw)
+            logc = torch.as_tensor(np.log(cmax[alive]), **kw)
+            tc = cell.coords[sh.atom] + images
+            tc = tc[np.linalg.norm(tc, axis=1) <= rc + reach]
+            step = max(1, chunk // max(1, pts.shape[0] * max(1, a.numel())))
+            for t0 in range(0, tc.shape[0], step):
+                t = torch.as_tensor(tc[t0:t0 + step], **kw)
+                r2 = ((pts[None] - t[:, None]) ** 2).sum(-1)    # (nt, ng)
+                lhs = 0.5 * l * torch.log(torch.clamp(r2, min=1.0)) - log_drop
+                need = (logc[:, None, None] - a[:, None, None] * r2[None]
+                        + lhs[None] >= 0) & (r2 <= rc * rc)[None]   # (p, nt, ng)
+                s_exp += int(need.sum())
+                s_pairs += int(need.any(dim=0).sum())
+        n_exp += s_exp
+        pairs += s_pairs
+        instr += _instr(l, K, s_pairs, s_exp)
+    return dict(exp=n_exp, pairs=pairs, fp64_instr=instr)
+
+
+def collocation_work(cell, plans, dest, device=None) -> dict:
+    """Work of kernel K1 on a plan and what its inputs need.
+
+    ``evaluated``: the exponentials, (point, image) pairs and FP64
+    instructions this plan lets the kernel run (slots with no point run
+    nothing; the per-point cut can only lower the count); ``needed``:
+    :func:`needed_work` of the inputs, the same for any plan of the same
+    cell and grid."""
+    npts = (np.asarray(dest) >= 0).sum(axis=1)                  # (nb,)
+    n_exp = pairs = instr = 0
     for p in plans:
-        M = 2 * p.l + 1
-        pts = int(p.counts.sum()) * block
-        n_exp += pts * p.P
-        flops += pts * (8 + p.P * (2 + 2 * p.K) + _ANG_FLOPS[p.l] + 2 * p.K * M)
-    return n_exp, flops
+        pe = int((p.nprim.sum(axis=2) * npts[None]).sum())
+        pp = int((p.counts * npts[None]).sum())
+        n_exp += pe
+        pairs += pp
+        instr += _instr(p.l, p.K, pp, pe)
+    return dict(evaluated=dict(exp=n_exp, pairs=pairs, fp64_instr=instr),
+                needed=needed_work(cell, device))
 
 
-def _shapes(l, counts, centers, exps, coeffs, coordsT, imgs):
+def _shapes(l, counts, nprim, cuts, centers, exps, coeffs, coordsT, dest, imgs):
     ns, nb = counts.shape
     P, K, imax = exps.shape[1], coeffs.shape[2], imgs.shape[3]
-    ng_p = coordsT.shape[1]
-    if (centers.shape != (ns, 3) or exps.shape != (ns, P)
+    ntot = coordsT.shape[1]
+    if (centers.shape != (ns, 3) or exps.shape != (ns, P) or cuts.shape != (ns,)
             or coeffs.shape != (ns, P, K) or imgs.shape != (ns, nb, 3, imax)
-            or coordsT.shape[0] != 3 or ng_p % nb):
+            or nprim.shape != (ns, nb, imax) or coordsT.shape[0] != 3
+            or dest.shape != (ntot,) or ntot % nb):
         raise ValueError("inconsistent AO collocation shapes")
-    return ns, nb, P, K, imax, ng_p, ng_p // nb
+    return ns, nb, P, K, imax, ntot // nb
 
 
-def collocate_plain(l, counts, centers, exps, coeffs, coordsT, imgs,
-                    chunk_elems: int = 1 << 24):
+def collocate_plain(l, counts, nprim, cuts, centers, exps, coeffs, coordsT,
+                    dest, imgs, ng, chunk_elems: int = 1 << 24):
     """Plain torch version of the kernel, same signature and result.
 
-    out[(s*K + k)*(2l+1) + m, b*NB + i] = sum_{j < counts[s,b]}
-        sum_p coeffs[s,p,k] exp(-exps[s,p] r^2) S_lm(d),
-        d = (coordsT[:, b*NB+i] - centers[s]) - imgs[s, b, :, j].
+    out[(s*K + k)*(2l+1) + m, dest[b*NB + i]] = sum_{j < counts[s,b]}
+        sum_{p < nprim[s,b,j], -exps[s,p] r^2 >= cuts[s]}
+        coeffs[s,p,k] exp(-exps[s,p] r^2) S_lm(d),
+        d = (coordsT[:, b*NB+i] - centers[s]) - imgs[s, b, :, j],
+    for every slot with dest >= 0. (The kernel stops at a point's first
+    primitive below the cut; the brick plan sorts the exponents, so that
+    is the same sum.)
     """
-    ns, nb, P, K, imax, ng_p, NB = _shapes(l, counts, centers, exps, coeffs,
-                                           coordsT, imgs)
+    ns, nb, P, K, imax, NB = _shapes(l, counts, nprim, cuts, centers, exps,
+                                     coeffs, coordsT, dest, imgs)
     M = 2 * l + 1
-    out = torch.empty((ns, K, M, nb, NB), dtype=coordsT.dtype,
-                      device=coordsT.device)
-    slot = torch.arange(imax, device=coordsT.device)
-    bc = max(1, chunk_elems // (ns * imax * NB * max(P, M, K)))
+    kw = dict(dtype=coordsT.dtype, device=coordsT.device)
+    jm = max(1, int(counts.max())) if counts.numel() else 1   # live slots
+    rows = torch.empty((ns, K, M, nb, NB), **kw)
+    prim = torch.arange(P, device=coordsT.device)
+    bc = max(1, chunk_elems // (ns * jm * NB * max(P, M, K)))
     for b0 in range(0, nb, bc):
         b1 = min(nb, b0 + bc)
         xyz = coordsT[:, b0 * NB:b1 * NB].reshape(3, b1 - b0, 1, NB)
-        T = imgs[:, b0:b1]                                    # (ns, bc, 3, imax)
+        T = imgs[:, b0:b1, :, :jm]                            # (ns, bc, 3, jm)
         d = torch.stack([(xyz[c][None] - centers[:, c, None, None, None])
                          - T[:, :, c, :, None] for c in range(3)], -1)
-        r2 = (d * d).sum(-1)                                  # (ns, bc, imax, NB)
-        live = (slot < counts[:, b0:b1, None]).to(coordsT.dtype)
-        g = torch.exp(-exps[:, None, None, None, :] * r2[..., None])
-        rad = torch.einsum("sbjgp,spk->sbjgk", g, coeffs) \
-            * live[..., None, None]
-        ang = solid_harmonics(l, d, torch)                    # (ns, bc, imax, NB, M)
-        out[:, :, :, b0:b1] = torch.einsum("sbjgk,sbjgm->skmbg", rad, ang)
-    return out.reshape(ns * K * M, ng_p)
+        r2 = (d * d).sum(-1)                                  # (ns, bc, jm, NB)
+        live = prim < nprim[:, b0:b1, :jm, None]               # (ns, bc, jm, P)
+        arg = -exps[:, None, None, None, :] * r2[..., None]    # (ns, bc, jm, NB, P)
+        g = torch.exp(arg) * (live[:, :, :, None, :]
+                              & (arg >= cuts[:, None, None, None, None]))
+        rad = torch.einsum("sbjgp,spk->sbjgk", g, coeffs)
+        ang = solid_harmonics(l, d, torch)                    # (ns, bc, jm, NB, M)
+        rows[:, :, :, b0:b1] = torch.einsum("sbjgk,sbjgm->skmbg", rad, ang)
+    rows = rows.reshape(ns * K * M, nb * NB)
+    out = torch.zeros((ns * K * M, ng), **kw)
+    valid = dest >= 0
+    out[:, dest[valid].long()] = rows[:, valid]
+    return out
 
 
-def collocate(l, counts, centers, exps, coeffs, coordsT, imgs):
-    """AO rows of one angular momentum: (ns*K*(2l+1), ng_p).
+def collocate(l, counts, nprim, cuts, centers, exps, coeffs, coordsT, dest,
+              imgs, ng):
+    """AO rows of one angular momentum: (ns*K*(2l+1), ng).
 
     CPU tensors take :func:`collocate_plain`; CUDA tensors launch the
-    kernel (``ao_collocate_f32``/``_f64``) on the current stream.
+    kernel (``ao_collocate_f32``/``_f64``) on the current stream. The
+    kernel clamps trip counts to the list and skips slots whose index is
+    outside [0, ng), so no value of the integer inputs writes out of
+    bounds.
     """
     if coordsT.device.type == "cpu":
-        return collocate_plain(l, counts, centers, exps, coeffs, coordsT, imgs)
-    ns, nb, P, K, imax, ng_p, NB = _shapes(l, counts, centers, exps, coeffs,
-                                           coordsT, imgs)
+        return collocate_plain(l, counts, nprim, cuts, centers, exps, coeffs,
+                               coordsT, dest, imgs, ng)
+    ns, nb, P, K, imax, NB = _shapes(l, counts, nprim, cuts, centers, exps,
+                                     coeffs, coordsT, dest, imgs)
     dtype = coordsT.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"AO collocation kernel: unsupported dtype {dtype}")
-    for t in (centers, exps, coeffs, coordsT, imgs):
+    for t in (cuts, centers, exps, coeffs, coordsT, imgs):
         if t.device != coordsT.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError("AO collocation kernel: inputs must be contiguous "
                              f"{dtype} tensors on {coordsT.device}")
-    if (counts.device != coordsT.device or counts.dtype != torch.int32
-            or not counts.is_contiguous()):
-        raise ValueError("AO collocation kernel: counts must be contiguous "
-                         "int32 on the same device")
+    for t in (counts, nprim, dest):
+        if (t.device != coordsT.device or t.dtype != torch.int32
+                or not t.is_contiguous()):
+            raise ValueError("AO collocation kernel: counts, nprim and dest "
+                             "must be contiguous int32 on the same device")
     if not (0 <= l <= MAX_L and 1 <= K <= MAX_K):
         raise NotImplementedError(f"AO collocation kernel: l={l}, K={K}")
-    out = torch.empty((ns * K * (2 * l + 1), ng_p), dtype=dtype,
+    if nb * NB >= 2 ** 31 or ng >= 2 ** 31:
+        raise ValueError("AO collocation kernel: grid too large")
+    out = torch.empty((ns * K * (2 * l + 1), ng), dtype=dtype,
                       device=coordsT.device)
     lib = cuda_lib.load()
     fn = lib.ao_collocate_f64 if dtype == torch.float64 else lib.ao_collocate_f32
     stream = torch.cuda.current_stream(coordsT.device).cuda_stream
-    rc = fn(l, K, P, ns, nb, NB, imax, ng_p, counts.data_ptr(),
-            centers.data_ptr(), exps.data_ptr(), coeffs.data_ptr(),
-            coordsT.data_ptr(), imgs.data_ptr(), out.data_ptr(), stream)
+    rc = fn(l, K, P, ns, nb, NB, imax, ng, counts.data_ptr(), nprim.data_ptr(),
+            cuts.data_ptr(), centers.data_ptr(), exps.data_ptr(), coeffs.data_ptr(),
+            coordsT.data_ptr(), dest.data_ptr(), imgs.data_ptr(),
+            out.data_ptr(), stream)
     cuda_lib.check(rc, "ao_collocate")
     collocate.launches += 1
     return out
@@ -232,26 +432,34 @@ def make_ao_evaluator(cell, coords=None, block: int = 512,
                       dtype=torch.float64, device=None):
     """Plan once, evaluate many: returns ``fn() -> aoR (ngrids, nao)``.
 
-    Host planning (image culling per block) happens here; the returned
-    callable launches one collocation per l on pre-staged tensors. The
-    staged per-l inputs are available as ``fn.staged`` (a list of
-    argument tuples of :func:`collocate`).
+    Host planning happens here: bricks on the uniform grid
+    (``coords=None``), the reference's slabs of ``block`` points for
+    explicit ``coords``. The returned callable launches one collocation
+    per l on pre-staged tensors. The staged per-l inputs are available as
+    ``fn.staged`` (a list of argument tuples of :func:`collocate`), the
+    plans and slots as ``fn.plans`` and ``fn.dest``.
     """
     device = resolve_device(device)
-    plans, nb, NB = plan_ao_blocks(cell, coords, block)
     if coords is None:
+        plans, dest = plan_ao_bricks(cell)
         coords = cell.uniform_grid()
+    else:
+        plans, _, _ = plan_ao_blocks(cell, coords, block)
+        dest = slab_slots(coords.shape[0], block)
     ng = coords.shape[0]
-    npad = nb * NB - ng
+    flat = dest.ravel()
     coordsT = torch.as_tensor(
-        np.ascontiguousarray(np.pad(coords, ((0, npad), (0, 0)), mode="edge").T),
-        dtype=dtype, device=device)                                  # (3, ng_p)
+        np.ascontiguousarray(coords[np.where(flat >= 0, flat, 0)].T),
+        dtype=dtype, device=device)                             # (3, nb*NB)
+    dest_t = torch.as_tensor(flat.astype(np.int32), device=device)
 
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
-    staged = [(p.l, torch.as_tensor(p.counts, device=device), dev(p.centers),
-               dev(p.exps), dev(p.coeffs), coordsT, dev(p.imgs)) for p in plans]
+    staged = [(p.l, torch.as_tensor(p.counts, device=device),
+               torch.as_tensor(p.nprim, device=device), dev(p.cuts), dev(p.centers),
+               dev(p.exps), dev(p.coeffs), coordsT, dest_t, dev(p.imgs), ng)
+              for p in plans]
     cols = np.concatenate([p.cols for p in plans])
     keep = cols >= 0
     inv = np.zeros(cell.nao, dtype=np.int64)
@@ -260,9 +468,9 @@ def make_ao_evaluator(cell, coords=None, block: int = 512,
 
     def evaluate():
         rows = torch.cat([collocate(*args) for args in staged])
-        return rows[inv_t, :ng].T.contiguous()
+        return rows[inv_t].T.contiguous()
 
     evaluate.staged = staged
     evaluate.plans = plans
-    evaluate.block = NB
+    evaluate.dest = dest
     return evaluate

@@ -27,10 +27,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argument types (all return cudaError_t as int)
 _SIGNATURES = {
-    # l, K, P, ns, nb, NB, imax, ng_p, counts, centers, exps, coeffs,
-    # coordsT, imgs, out, stream
-    "ao_collocate_f64": (_I,) * 8 + (_P,) * 8,
-    "ao_collocate_f32": (_I,) * 8 + (_P,) * 8,
+    # l, K, P, ns, nb, NB, imax, ng, counts, nprim, cuts, centers, exps,
+    # coeffs, coordsT, dest, imgs, out, stream
+    "ao_collocate_f64": (_I,) * 8 + (_P,) * 11,
+    "ao_collocate_f32": (_I,) * 8 + (_P,) * 11,
     # ng, nao, nip, nsplit, g_per_split, stages, width, cs, aoR, B, Vxi,
     # partial, out, stream
     "robust_k_cross_f64": (_I,) * 8 + (_P,) * 6,

@@ -1,12 +1,16 @@
-"""Port AO collocation (K1's plain path, its planner, the dense evaluator,
+"""Port AO collocation (K1's plain path, its planners, the dense evaluator,
 spectral gradients) == JAX reference.
 
 K1 runs on the CPU through its plain torch version (the CUDA kernel is
-held against the same plain version on the card by chip_smoke.py). The
-reference is the float64 host evaluator and the Pallas kernel in
-interpret mode. Tolerance 1e-12: both sides sum the same Gaussians in
-float64, in different orders.
+held against the same plain version on the card by chip_smoke.py), on the
+brick plan of the uniform grid and on the reference's slab plan for
+explicit coordinates. The reference is the float64 host evaluator and the
+Pallas kernel in interpret mode. Tolerance 1e-12: both sides sum the same
+Gaussians in float64, in different orders, and the brick plan drops terms
+below 1e-16 each.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -42,17 +46,36 @@ CASES = {
     "dzvp": (lambda: ref_diamond(mesh=(12, 12, 12), basis="gth-dzvp"),
              lambda: diamond_primitive(mesh=(12, 12, 12), basis="gth-dzvp")),
     "few_images": (lambda: _h_box(ref_build_cell), lambda: _h_box(build_cell)),
+    # 17 is no multiple of the 8-point brick: partial bricks
+    "szv17": (lambda: ref_diamond(mesh=(17, 17, 17)),
+              lambda: diamond_primitive(mesh=(17, 17, 17))),
 }
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(case):
+    """(dense host evaluator, Pallas kernel in interpret mode) aoR."""
+    ref_cell = CASES[case][0]()
+    return eval_ao_numpy(ref_cell), np.asarray(
+        eval_ao_pallas(ref_cell, interpret=True, dtype=jnp.float64))
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_culled_collocation(case):
-    ref_cell, cell = CASES[case][0](), CASES[case][1]()
-    out = cuda_ao.make_ao_evaluator(cell, device="cpu")().numpy()
-    assert np.abs(out - eval_ao_numpy(ref_cell)).max() < TOL
-    pallas = np.asarray(eval_ao_pallas(ref_cell, interpret=True,
-                                       dtype=jnp.float64))
-    assert np.abs(out - pallas).max() < TOL
+    """The main path's brick plan (uniform grid, primitives culled)."""
+    out = cuda_ao.make_ao_evaluator(CASES[case][1](), device="cpu")().numpy()
+    for ref in _reference(case):
+        assert np.abs(out - ref).max() < TOL
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_slab_collocation(case):
+    """Explicit coordinates take the reference's slab plan."""
+    cell = CASES[case][1]()
+    out = cuda_ao.make_ao_evaluator(cell, coords=cell.uniform_grid(),
+                                    device="cpu")().numpy()
+    for ref in _reference(case):
+        assert np.abs(out - ref).max() < TOL
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
