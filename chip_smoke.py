@@ -30,7 +30,20 @@ run from the root of a checkout. Phases, each of which fails the script:
      scf_kernel(xc='pbe0', df='isdf-robust', isdf_c=16, conv_tol=1e-8) on
      the card with the launch counters zeroed just before and read just
      after, then one FFTDF exchange at the final density
-     (|tr(D(K_fftdf - K_robust))| < 1e-3 Ha).
+     (|tr(D(K_fftdf - K_robust))| < 1e-3 Ha);
+  6. a small k-point cell (diamond primitive 9^3, shifted (1,1,2) k-mesh):
+     kscf_kernel with df='isdf_q' (PBE0), 'isdf' (PBE0) and 'fftdf' (HF)
+     on the card against the same SCF on the CPU (1e-8 Ha);
+  7. the certified path at full width: the k-point LDA SCF of the diamond
+     primitive cell (gth-szv, 16^3, Gamma-centred 3x3x3 k-mesh,
+     conv_tol 1e-10), build_sym at c=32 (n_ip 256 a cell), the device and
+     host float64 certificates (positive, equal to 1e-9 relative,
+     <= 1e-6 Ha), assemble onto the 3x3x3 supercell at 48^3 with its aoR
+     from K1 (n_ip 6912), the direct supercell deficit
+     tr(D(K_fftdf - K_robust)) at the unfolded density against the
+     certificate (1%), K2 against its plain version at (110592, 216, 6912)
+     (1e-10 relative), and CUDA-event times of one supercell J + robust K
+     and of K2, its plain version and the library formulation there.
 
 It prints the kernels' JSON summary and, as its last line,
 {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -351,6 +364,146 @@ def phase_main(torch):
     return launches, res["isdf"].n_ip
 
 
+def phase_small_k(torch):
+    """k-point SCF of a small cell through the three k engines: card vs CPU."""
+    from pyscf_isdf_tpu_torch import lattice
+    from pyscf_isdf_tpu_torch.models import diamond_primitive
+    from pyscf_isdf_tpu_torch.scf import build_kscf_system, kscf_kernel
+
+    cell = diamond_primitive(mesh=(9, 9, 9))
+    kpts = lattice.make_kpts(cell.a, [1, 1, 2], with_gamma_point=False)
+    systems = {dev: build_kscf_system(cell, kpts, device=dev)
+               for dev in ("cuda", "cpu")}
+    for xc, df in (("pbe0", "isdf_q"), ("pbe0", "isdf"), ("hf", "fftdf")):
+        e = {}
+        for dev, system in systems.items():
+            res = kscf_kernel(system, xc=xc, df=df, isdf_c=8, conv_tol=1e-10,
+                              device=dev)
+            check(res["converged"], f"small k-cell {xc}/{df} on {dev} did not converge")
+            e[dev] = res["e_tot"]
+        log(f"small k-cell (9^3, 1x1x2 shifted) {xc}/{df}: e_tot card "
+            f"{e['cuda']:.12f}, cpu {e['cpu']:.12f}, |diff| "
+            f"{abs(e['cuda'] - e['cpu']):.3e} (bar 1e-8)")
+        check(abs(e["cuda"] - e["cpu"]) < 1e-8, f"small k-cell {xc}/{df}: card != CPU")
+
+
+def phase_certified(torch, dev="cuda", nrep=(3, 3, 3), pm=(16, 16, 16), c=32.0):
+    """The certified translation-symmetric build at full width, assembled
+    onto the supercell and driven through K1 and K2 (the arguments shrink
+    it for a rehearsal on the CPU)."""
+    import numpy as np
+
+    from pyscf_isdf_tpu_torch import lattice
+    from pyscf_isdf_tpu_torch.df import fftdf, isdf as isdf_mod, isdf_sym
+    from pyscf_isdf_tpu_torch.k2gamma import dm_k2gamma
+    from pyscf_isdf_tpu_torch.models import diamond_primitive, diamond_supercell
+    from pyscf_isdf_tpu_torch.ops import coulomb
+    from pyscf_isdf_tpu_torch.ops.cuda_ao import collocate, make_ao_evaluator
+    from pyscf_isdf_tpu_torch.ops.cuda_robust_k import (
+        robust_k_cross, robust_k_cross_plain,
+    )
+    from pyscf_isdf_tpu_torch.scf import build_kscf_system, kscf_kernel
+
+    secs = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    collocate.launches = 0
+    robust_k_cross.launches = 0
+    prim = diamond_primitive(mesh=pm)
+    kpts = lattice.make_kpts(prim.a, list(nrep), with_gamma_point=True)
+    nk = len(kpts)
+    ksys = stage("k-system build", lambda: build_kscf_system(prim, kpts, device=dev))
+    res = stage("k-LDA SCF", lambda: kscf_kernel(ksys, xc="lda,vwn", conv_tol=1e-10,
+                                                 device=dev))
+    log(f"certified path: primitive diamond gth-szv {pm} nao={prim.nao} nk={nk}; "
+        f"k-LDA SCF {res['niter']} iterations, E/cell={res['e_tot']:.10f}, "
+        f"converged={res['converged']}")
+    check(res["converged"], "k-point LDA SCF did not converge")
+    occ = np.asarray(res["mo_occ"])
+    nocc = int(round(occ.sum() / (2 * nk)))
+    check(np.allclose(occ[:, :nocc], 2.0) and occ[:, nocc:].max() < 1e-9,
+          "k-point LDA SCF: occupation is not uniform")
+    C_w = torch.stack(res["mo_coeff"])[:, :, :nocc] * 2.0 ** 0.5
+    psi_k = ksys.aoR_k @ C_w
+
+    sc = diamond_supercell(nrep, mesh=tuple(n * m for n, m in zip(nrep, pm)))
+    coulG = torch.as_tensor(coulomb.get_coulG(sc), dtype=torch.float64, device=dev)
+    sym = stage("build_sym", lambda: isdf_sym.build_sym(
+        prim, nrep, ksys.aoR_k, kpts, coulG.cpu().numpy(), c=c))
+    de_dev = stage("certificate (device)", lambda: isdf_sym.certify_deficit(sym, psi_k))
+    de_host = stage("certificate (host numpy)",
+                    lambda: isdf_sym.certify_deficit_host(sym, psi_k))
+    agree = abs(de_dev - de_host) / abs(de_host)
+    log(f"certificates: device {de_dev:.6e} Ha, host {de_host:.6e} Ha, "
+        f"relative difference {agree:.3e} (bars: > 0, <= 1e-6 Ha, 1e-9 relative)")
+    check(de_dev > 0 and de_host > 0, "a certificate is not positive")
+    check(agree < 1e-9, "device and host certificates disagree")
+    check(de_host <= 1e-6, f"certified deficit {de_host:.3e} Ha > 1e-6 Ha")
+
+    evaluate = stage("supercell AO plan", lambda: make_ao_evaluator(sc, device=dev))
+    aoR = stage("supercell aoR (K1)", evaluate)
+    k1_launches = collocate.launches
+    del evaluate
+    torch.cuda.reset_peak_memory_stats()
+    fac = stage("assemble", lambda: isdf_sym.assemble(sym, aoR, prim.a))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"assembled: n_ip={fac.n_ip} (c={c:g}), Vxi {tuple(fac.Vxi.shape)}, "
+        f"peak device memory in assemble {peak_gb:.2f} GB")
+    check(fac.n_ip == int(c * sc.nao), f"assembled n_ip={fac.n_ip}")
+    check(k1_launches > 0, "K1 was not launched on the certified path")
+
+    dm_k = (C_w @ C_w.conj().transpose(1, 2)).cpu().numpy()
+    dm_c = np.asarray(dm_k2gamma(prim, dm_k, kpts, nrep))
+    im = float(np.abs(np.imag(dm_c)).max())
+    dm_s = torch.as_tensor(np.ascontiguousarray(np.real(dm_c)), device=dev)
+    robust_k_cross.launches = 0
+    vk_rob = stage("supercell robust K (K2)", lambda: isdf_mod.get_k_robust(
+        fac, aoR, dm_s, sc.grid_weight))
+    k2_launches = robust_k_cross.launches
+    vk_fft = stage("supercell FFTDF K (oracle)", lambda: fftdf.get_k(
+        aoR, dm_s, coulG, sc.mesh, sc.grid_weight, chunk=8))
+    de_direct = float(torch.einsum("ij,ji->", dm_s, vk_fft - vk_rob))
+    diff = abs(de_direct - de_host) / de_host
+    log(f"direct supercell deficit tr(D(K_fftdf - K_robust)) = {de_direct:.6e} Ha "
+        f"at Re dm_k2gamma (max|Im dm_super| = {im:.3e}); against the "
+        f"certificate {diff:.3e} relative (bar 1e-2); K2 launches {k2_launches}")
+    check(k2_launches > 0, "K2 was not launched on the certified path")
+    check(diff < 1e-2, "direct supercell deficit disagrees with the certificate")
+    del vk_fft
+
+    def jk():
+        fftdf.get_j(aoR, dm_s, coulG, sc.mesh, sc.grid_weight)
+        isdf_mod.get_k_robust(fac, aoR, dm_s, sc.grid_weight)
+
+    jk_ms = cuda_time_ms(jk)
+    B = fac.aoRg @ dm_s
+    out = robust_k_cross(aoR, B, fac.Vxi)
+    torch.cuda.synchronize()
+    ref = robust_k_cross_plain(aoR, B, fac.Vxi)
+    rel = float((out - ref).abs().max() / ref.abs().max())
+    log(f"K2 certified shape {(aoR.shape[0], aoR.shape[1], B.shape[0])} f64: "
+        f"max|kernel-plain| relative {rel:.3e} (bar 1e-10)")
+    check(rel < 1e-10, "K2 disagrees with its plain version at the certified shape")
+    del out, ref
+    robust_k_cross.launches = 0
+    k2 = time_k2(torch, (aoR, B, fac.Vxi), "certified shape")
+    k2.update(err_rel=rel, launches=k2_launches, k1_launches=k1_launches, jk_ms=jk_ms,
+              shape=[aoR.shape[0], aoR.shape[1], B.shape[0]])
+    log(f"supercell J + robust K (assembled c={c:g}): {jk_ms:.3f} ms (median of 5)")
+    log("certified path stage seconds: " + ", ".join(
+        f"{k}={v:.3f}" for k, v in secs.items()))
+    del fac, aoR, B
+    torch.cuda.empty_cache()
+    return k2
+
+
 def main():
     try:
         import torch
@@ -398,6 +551,9 @@ def main():
     phase_small_scf(torch)
     launches, n_ip = phase_main(torch)
     check(n_ip == 16 * 216, f"main path n_ip={n_ip}, K2 was timed at 3456")
+    torch.cuda.empty_cache()
+    phase_small_k(torch)
+    cert = phase_certified(torch)
 
     kernels = [
         dict(name="ao_collocate", route="cuda",
@@ -405,13 +561,19 @@ def main():
              replaces="pyscf_isdf_tpu/ops/pallas_ao.py:166",
              launches=launches["ao_collocate"], max_abs_err=k1["err"],
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-             bound_by=k1["bound_by"], library_ms=None),
+             bound_by=k1["bound_by"], library_ms=None,
+             certified=dict(launches=cert["k1_launches"])),
         dict(name="robust_k_cross", route="cuda",
              source="pyscf_isdf_tpu_torch/csrc/robust_k.cu",
              replaces="pyscf_isdf_tpu/ops/pallas_robust_k.py:41",
              launches=launches["robust_k_cross"], max_abs_err=k2["err"],
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
-             bound_by=k2["bound_by"], library_ms=k2["library_ms"]),
+             bound_by=k2["bound_by"], library_ms=k2["library_ms"],
+             certified=dict(shape=cert["shape"], launches=cert["launches"],
+                            max_rel_err=cert["err_rel"], ms=cert["ms"],
+                            plain_ms=cert["plain_ms"], bound_ms=cert["bound_ms"],
+                            bound_by=cert["bound_by"],
+                            library_ms=cert["library_ms"])),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

@@ -11,7 +11,10 @@ import torch
 
 from pyscf_isdf_tpu_torch.device import resolve_device
 from pyscf_isdf_tpu_torch.df.isdf import ISDF
+from pyscf_isdf_tpu_torch.df.isdf_q import ISDFQ
+from pyscf_isdf_tpu_torch.df.isdf_sym import SymISDF
 from pyscf_isdf_tpu_torch.scf.hf import SCFSystem
+from pyscf_isdf_tpu_torch.scf.khf import KSCFSystem
 
 
 def isdf_from_numpy(aoRg, W, ip_idx, Vxi=None, device=None,
@@ -44,3 +47,57 @@ def system_from_numpy(cell, S, hcore, X, aoR, coulG, madelung, e_nuc,
         mesh=tuple(cell.mesh), weight=cell.grid_weight, nelec=cell.nelectron,
         Gv=t(cell.get_Gv(), dtype),
     )
+
+
+def _tensor(a, dtype, device):
+    return torch.as_tensor(np.array(a), dtype=dtype, device=device).contiguous()
+
+
+def kscf_system_from_numpy(cell, kpts, S, hcore, X, aoR_k, coulG, coulG_pairs,
+                           expmikr, madelung, e_nuc, device=None) -> KSCFSystem:
+    """A :class:`KSCFSystem` from its numpy fields; ``X`` is one (nk, nao,
+    nrank) array or a list of per-k (nao, nrank_k) orthogonalizers. Mesh,
+    grid weight and electron count come from ``cell``."""
+    device = resolve_device(device)
+    c128 = torch.complex128
+    kpts = np.reshape(np.asarray(kpts, dtype=np.float64), (-1, 3))
+    return KSCFSystem(
+        cell=cell, kpts=kpts, S=_tensor(S, c128, device),
+        hcore=_tensor(hcore, c128, device),
+        X=tuple(_tensor(x, c128, device) for x in X),
+        aoR_k=_tensor(aoR_k, c128, device),
+        coulG=_tensor(coulG, torch.float64, device),
+        coulG_pairs=_tensor(coulG_pairs, torch.float64, device),
+        expmikr=_tensor(expmikr, c128, device),
+        madelung=float(madelung), e_nuc=float(e_nuc), mesh=tuple(cell.mesh),
+        weight=cell.grid_weight, nelec_tot=cell.nelectron * len(kpts))
+
+
+def isdfq_from_numpy(Ag, Wq, qmap, ip_idx, Xq=None, VXq=None, phase_q=None,
+                     device=None) -> ISDFQ:
+    """An :class:`ISDFQ` from (nk, nip, nao) Ag, (nq, nip, nip) Wq, the
+    (nk, nk) q map, the (nip,) grid indices and, for the robust exchange
+    and the certificates, (nq, nip, ng) Xq and VXq and (nq, ng) phase_q."""
+    device = resolve_device(device)
+    c128 = torch.complex128
+
+    def opt(a):
+        return None if a is None else _tensor(a, c128, device)
+
+    return ISDFQ(Ag=_tensor(Ag, c128, device), Wq=_tensor(Wq, c128, device),
+                 qmap=np.asarray(qmap, dtype=np.int64),
+                 ip_idx=_tensor(ip_idx, torch.int64, device),
+                 Xq=opt(Xq), VXq=opt(VXq), phase_q=opt(phase_q))
+
+
+def sym_from_numpy(isdfq: ISDFQ, q_list, kpts, nrep, prim_mesh, coulG_q, Mq,
+                   weight) -> SymISDF:
+    """A :class:`SymISDF` around a per-q factorization (for example one
+    from :func:`isdfq_from_numpy`), on its device."""
+    return SymISDF(isdfq=isdfq, q_list=np.asarray(q_list),
+                   kpts=np.reshape(np.asarray(kpts), (-1, 3)),
+                   nrep=tuple(int(n) for n in nrep),
+                   prim_mesh=tuple(int(n) for n in prim_mesh),
+                   coulG_q=np.asarray(coulG_q, dtype=np.float64),
+                   Mq=_tensor(Mq, torch.complex128, isdfq.Ag.device),
+                   weight=float(weight))

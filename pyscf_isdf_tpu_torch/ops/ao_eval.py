@@ -1,14 +1,16 @@
 """Crystalline AO collocation on real-space grids (dense torch version).
 
-Evaluates the periodic Gamma-point AOs
+Evaluates the periodic AOs
 
-    Phi_mu(r_g) = sum_T phi_mu(r_g - R_mu - T)
+    Phi_mu^k(r_g) = sum_T e^{i k.T} phi_mu(r_g - R_mu - T)
 
 on the uniform FFT grid (functional spec per the reference C kernel
 pyscf/lib/pbc/grid_ao.c:512-680 driven by pyscf/pbc/gto/eval_gto.py:31-165).
-:func:`eval_ao` sums every image for every shell; the production path is
-the image-culled kernel of :mod:`pyscf_isdf_tpu_torch.ops.cuda_ao`.
-Gradients (GGA) are spectral: ``grad aoR = ifft(iG * fft(aoR))``.
+:func:`eval_ao` sums every image for every shell; the production path at
+Gamma is the image-culled kernel of :mod:`pyscf_isdf_tpu_torch.ops.cuda_ao`,
+and at k-points :func:`eval_ao_kpts`, which keeps per shell the images
+that can reach the grid. Gradients (GGA) are spectral:
+``grad aoR = ifft(iG * fft(aoR))``.
 """
 from __future__ import annotations
 
@@ -74,13 +76,16 @@ class PackedBasis:
         return inv
 
 
-def _eval_block(packed: PackedBasis, images, coords, img_chunk: int = 32):
-    """AO values for one grid block: (nb, nao_padded) in packed order."""
+def _eval_block(packed: PackedBasis, images, coords, kpts=None,
+                img_chunk: int = 32):
+    """AO values for one grid block in packed order: (nb, nao_padded), or
+    (nk, nb, nao_padded) complex with ``kpts`` (nk, 3)."""
     nimg = images.shape[0]
     npad = (-nimg) % img_chunk
     # pad with far-away dummy images (contribute exp(-large) = 0)
     imgs = torch.cat([images, torch.full((npad, 3), 1e6, dtype=images.dtype,
                                          device=images.device)])
+    nb = coords.shape[0]
     blocks = []
     for l in packed.ls:
         kw = dict(dtype=coords.dtype, device=coords.device)
@@ -88,7 +93,11 @@ def _eval_block(packed: PackedBasis, images, coords, img_chunk: int = 32):
         es = torch.as_tensor(packed.exps[l], **kw)                    # (ns,P)
         cs = torch.as_tensor(packed.coeffs[l], **kw)                  # (ns,P,K)
         ns, K = es.shape[0], cs.shape[2]
-        acc = torch.zeros((ns, coords.shape[0], K, 2 * l + 1), **kw)
+        if kpts is None:
+            acc = torch.zeros((ns, nb, K, 2 * l + 1), **kw)
+        else:
+            acc = torch.zeros((kpts.shape[0], ns, nb, K, 2 * l + 1),
+                              dtype=torch.complex128, device=coords.device)
         for i0 in range(0, imgs.shape[0], img_chunk):
             T = imgs[i0:i0 + img_chunk]                                # (nt,3)
             d = (coords[None, :, None, :] - ctr[:, None, None, :]
@@ -96,27 +105,89 @@ def _eval_block(packed: PackedBasis, images, coords, img_chunk: int = 32):
             r2 = (d * d).sum(-1)
             g = torch.exp(-es[:, None, None, :] * r2[..., None])       # (ns,nb,nt,P)
             ang = solid_harmonics(l, d, torch)                         # (ns,nb,nt,M)
-            acc += torch.einsum("sntp,spk,sntm->snkm", g, cs, ang)
-        blocks.append(acc.permute(1, 0, 2, 3).reshape(coords.shape[0], -1))
-    return torch.cat(blocks, dim=1)
+            if kpts is None:
+                acc += torch.einsum("sntp,spk,sntm->snkm", g, cs, ang)
+            else:
+                ph = torch.exp(1j * (T @ kpts.T))                      # (nt,nk)
+                rad = torch.einsum("sntp,spk->sntk", g, cs)
+                acc += torch.einsum("sntk,sntm,tq->qsnkm", rad.to(ph.dtype),
+                                    ang.to(ph.dtype), ph)
+        blocks.append(acc.transpose(-4, -3).reshape(acc.shape[:-4] + (nb, -1)))
+    return torch.cat(blocks, dim=-1)
 
 
-def eval_ao(packed: PackedBasis, coords, images, block_size: int = 8192):
+def eval_ao(packed: PackedBasis, coords, images, kpt=None,
+            block_size: int = 8192):
     """Evaluate aoR at every grid point, summing every image.
 
     Args:
         packed: PackedBasis of the cell.
         coords: (ngrids, 3) grid coordinates tensor (sets device and dtype).
         images: (nimg, 3) lattice translation vectors tensor.
+        kpt: optional (3,) k-point, or (nk, 3) k-points: complex128 Bloch
+            sums with the phases e^{i k.T}.
         block_size: grid points per block (memory knob).
 
     Returns:
-        (ngrids, nao) AO values in the cell's AO ordering.
+        (ngrids, nao) AO values in the cell's AO ordering; (nk, ngrids,
+        nao) for a (nk, 3) ``kpt``.
     """
-    out = torch.cat([_eval_block(packed, images, coords[g0:g0 + block_size])
-                     for g0 in range(0, coords.shape[0], block_size)])
-    return out[:, torch.as_tensor(packed.inverse_columns(),
-                                  device=coords.device)]
+    kpts = None
+    if kpt is not None:
+        kpts = torch.as_tensor(kpt, dtype=coords.dtype,
+                               device=coords.device).reshape(-1, 3)
+    out = torch.cat([_eval_block(packed, images, coords[g0:g0 + block_size], kpts)
+                     for g0 in range(0, coords.shape[0], block_size)], dim=-2)
+    out = out[..., torch.as_tensor(packed.inverse_columns(), device=coords.device)]
+    if kpt is not None and np.ndim(kpt) == 1:
+        out = out[0]
+    return out
+
+
+def eval_ao_kpts(cell, kpts, coords=None, device=None, img_chunk: int = 32):
+    """Bloch AOs at every k-point: (nk, ngrids, nao) complex128.
+
+    The build-time collocation of the k-point SCF, on ``device`` in
+    float64. Per shell it keeps the lattice images whose shifted centre
+    lies within the shell's cutoff radius plus the grid's radius of the
+    grid centre (the reference's ``eval_ao_numpy`` pruning), and sums them
+    with the phases e^{i k.T} of every k at once.
+    """
+    from pyscf_isdf_tpu_torch.device import resolve_device
+
+    device = resolve_device(device)
+    if coords is None:
+        coords = cell.uniform_grid()
+    kpts = np.reshape(np.asarray(kpts, dtype=np.float64), (-1, 3))
+    images = cell.lattice_images()
+    center = coords.mean(axis=0)
+    grid_rad = np.sqrt(((coords - center) ** 2).sum(axis=1).max())
+    f64 = dict(dtype=torch.float64, device=device)
+    r = torch.as_tensor(coords, **f64)
+    kt = torch.as_tensor(kpts, **f64)
+    ng = coords.shape[0]
+    out = torch.empty((len(kpts), ng, cell.nao), dtype=torch.complex128,
+                      device=device)
+    ao_loc = cell.ao_loc
+    for ish, sh in enumerate(cell.shells):
+        A = cell.coords[sh.atom]
+        dist = np.linalg.norm(A + images - center, axis=1)
+        imgs = torch.as_tensor(images[dist <= shell_rcut(sh) + grid_rad], **f64)
+        es = torch.as_tensor(sh.exps, **f64)
+        cs = torch.as_tensor(sh.coeffs, **f64)
+        acc = torch.zeros((len(kpts), ng, sh.nctr, 2 * sh.l + 1),
+                          dtype=torch.complex128, device=device)
+        for i0 in range(0, imgs.shape[0], img_chunk):
+            T = imgs[i0:i0 + img_chunk]                                # (nt,3)
+            d = r[:, None, :] - torch.as_tensor(A, **f64) - T[None]    # (ng,nt,3)
+            r2 = (d * d).sum(-1)
+            rad = torch.exp(-es * r2[..., None]) @ cs                  # (ng,nt,K)
+            ang = solid_harmonics(sh.l, d, torch)                      # (ng,nt,M)
+            ph = torch.exp(1j * (T @ kt.T))                            # (nt,nk)
+            acc += torch.einsum("gtk,gtm,tq->qgkm", rad.to(ph.dtype),
+                                ang.to(ph.dtype), ph)
+        out[:, :, ao_loc[ish]:ao_loc[ish + 1]] = acc.reshape(len(kpts), ng, sh.nao)
+    return out
 
 
 def shell_rcut(sh, precision: float = 1e-10) -> float:
@@ -142,3 +213,18 @@ def ao_gradient_fft(aoR, mesh, Gv):
     out = torch.fft.ifftn(fG[None] * iG[..., None], dim=(1, 2, 3))
     out = out.reshape(3, ng, nao)
     return out if aoR.is_complex() else out.real
+
+
+def ao_gradient_fft_k(aoR_k, mesh, Gv, kpt, coords):
+    """Spectral gradient of Bloch AOs at k: (3, ngrids, nao) complex.
+
+    phi^k = e^{ik.r} u with u periodic; grad phi^k =
+    e^{ik.r} ifft(i(G+k) fft(u)).
+    """
+    ng, nao = aoR_k.shape
+    phase = torch.exp(-1j * (coords @ kpt))                     # (ng,)
+    u = aoR_k * phase[:, None]
+    uG = torch.fft.fftn(u.reshape(*mesh, nao), dim=(0, 1, 2))
+    iGk = (1j * (Gv + kpt[None, :]).T).reshape(3, *mesh)
+    du = torch.fft.ifftn(uG[None] * iGk[..., None], dim=(1, 2, 3)).reshape(3, ng, nao)
+    return du * phase.conj()[None, :, None]

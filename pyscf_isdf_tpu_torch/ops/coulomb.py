@@ -2,21 +2,22 @@
 
 Host-side float64 builders for per-geometry constants (3-D cells):
 
-  * :func:`get_coulG` — 4 pi / |G|^2 with the G=0 conventions and the
-    Ewald probe-charge ('ewald') /
-    spherical-cutoff ('vcut_sph') exchange-divergence corrections
-    (reference semantics: pyscf/pbc/tools/pbc.py:230-420),
+  * :func:`get_coulG` — 4 pi / |k+G|^2 with wrap-around of high-frequency
+    k+G, the G=0 conventions and the Ewald probe-charge ('ewald') /
+    spherical-cutoff ('vcut_sph', Gamma only) exchange-divergence
+    corrections (reference semantics: pyscf/pbc/tools/pbc.py:230-420),
   * :func:`ewald` — real+reciprocal Ewald sum for the nuclear repulsion
     (reference: pyscf/pbc/gto/cell.py:648-800),
   * :func:`madelung` — probe-charge Madelung constant, = -2 x ewald energy
-    of a unit point charge in the cell
+    of a unit point charge in the (k-mesh-scaled) cell
     (reference: pyscf/pbc/tools/pbc.py:483-512).
 
-Gamma point only. The k-point kernels, the low-dimensional kernels,
-'vcut_ws' and range separation are not ported yet and raise
-``NotImplementedError``.
+The low-dimensional kernels, 'vcut_ws', 'vcut_sph' at a k-point and
+range separation are not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 from scipy.special import erfc
@@ -25,23 +26,52 @@ from pyscf_isdf_tpu_torch import lattice
 from pyscf_isdf_tpu_torch.cell import _estimate_rcut
 
 
-def get_coulG(cell, k=None, exxdiv=None, mesh=None, Gv=None) -> np.ndarray:
-    """Coulomb kernel 4 pi/|G|^2 for all G on the mesh (float64, host).
+def get_coulG(cell, k=None, exxdiv=None, mesh=None, Gv=None, kpts=None,
+              omega=None) -> np.ndarray:
+    """Coulomb kernel 4 pi/|k+G|^2 for all G on the mesh (float64, host).
 
     Args:
-        k: momentum transfer; only Gamma (None or zero) is ported.
+        k: momentum transfer (3,): zero or None for J builds, k_j - k_i
+            for exchange.
         exxdiv: None | 'ewald' | 'vcut_sph' — G=0 divergence treatment for
-            exchange matrix elements.
+            exchange matrix elements ('vcut_sph' at Gamma only).
+        kpts: the full k-point set; 'ewald' scales the probe-charge shift
+            by its Monkhorst-Pack size.
+
+    At a k-point, k+G beyond the FFT box is folded back into it, so Gamma
+    and k-point calculations agree.
     """
-    if k is not None and np.abs(k).sum() > 1e-9:
-        raise NotImplementedError("k-point Coulomb kernels")
+    if omega:
+        raise NotImplementedError("range-separated Coulomb kernels (omega)")
     if cell.dimension != 3:
         raise NotImplementedError("low-dimensional Coulomb kernels")
     if exxdiv not in (None, "ewald", "vcut_sph"):
         raise NotImplementedError(f"exxdiv={exxdiv!r}")
+    k = np.zeros(3) if k is None else np.asarray(k, dtype=np.float64)
+    kpts = k.reshape(1, 3) if kpts is None else np.reshape(kpts, (-1, 3))
+    at_k = np.abs(k).sum() > 1e-9
+    if exxdiv == "vcut_sph" and (at_k or len(kpts) > 1):
+        raise NotImplementedError("exxdiv='vcut_sph' with k-points")
+    mesh = mesh or cell.mesh
     if Gv is None:
-        Gv = cell.get_Gv(mesh or cell.mesh)
-    absG2 = np.einsum("gi,gi->g", Gv, Gv)
+        Gv = cell.get_Gv(mesh)
+
+    kG = Gv + k if at_k else Gv
+    equal2boundary = None
+    if at_k:
+        kG = kG.copy()
+        equal2boundary = np.zeros(Gv.shape[0], dtype=bool)
+        b = cell.reciprocal_vectors()
+        box_edge = (np.asarray(mesh) // 2 + 0.5)[:, None] * b
+        reduced = np.linalg.solve(box_edge.T, kG.T).T.round(9)
+        on_edge = reduced.astype(int)
+        for i in range(3):
+            equal2boundary |= reduced[:, i] == 1
+            equal2boundary |= reduced[:, i] == -1
+            kG[on_edge[:, i] == 1] -= 2 * box_edge[i]
+            kG[on_edge[:, i] == -1] += 2 * box_edge[i]
+
+    absG2 = np.einsum("gi,gi->g", kG, kG)
     G0_idx = absG2 == 0
 
     if exxdiv == "vcut_sph":
@@ -54,7 +84,9 @@ def get_coulG(cell, k=None, exxdiv=None, mesh=None, Gv=None) -> np.ndarray:
             coulG = 4 * np.pi / absG2
         coulG[G0_idx] = 0
         if exxdiv == "ewald" and G0_idx.any():
-            coulG[G0_idx] += cell.vol * madelung(cell)
+            coulG[G0_idx] += len(kpts) * cell.vol * madelung(cell, kpts)
+    if equal2boundary is not None:
+        coulG[equal2boundary] = 0
     return coulG
 
 
@@ -101,7 +133,24 @@ def ewald(cell, ew_eta=None, ew_cut=None) -> float:
     return float(ewovrl + ewself + ewg)
 
 
-def madelung(cell) -> float:
-    """Probe-charge Madelung constant for the exchange G=0 correction
-    (Gamma point: the cell itself, no k-mesh scaling)."""
-    return -2.0 * ewald(cell.madelung_cell())
+def madelung(cell, kpts=None) -> float:
+    """Probe-charge Madelung constant for the exchange G=0 correction: the
+    cell scaled by the Monkhorst-Pack size of ``kpts`` (the cell itself at
+    Gamma)."""
+    if kpts is None:
+        Nk = np.ones(3, dtype=int)
+    else:
+        Nk = monkhorst_pack_size(cell, np.reshape(kpts, (-1, 3)))
+    scaled = dataclasses.replace(cell.madelung_cell(), a=cell.a * Nk[:, None])
+    return -2.0 * ewald(scaled)
+
+
+def monkhorst_pack_size(cell, kpts, tol=1e-5):
+    """Points of the k-mesh along each reciprocal axis."""
+    if kpts.shape[0] == 1:
+        return np.ones(3, dtype=int)
+    tol = max(10 ** (-int(-np.log10(1 / kpts.shape[0])) - 2), tol)
+    skpts = kpts @ np.linalg.inv(cell.reciprocal_vectors())
+    return np.array(
+        [np.count_nonzero(abs(sk[1:] - sk[:-1]) > tol) + 1 for sk in np.sort(skpts.T)]
+    )

@@ -27,11 +27,12 @@ from pyscf_isdf_tpu_torch.ops.solid_harmonics import solid_harmonics
 
 
 def ft_ao(cell, Gv, kpt=None, device=None) -> torch.Tensor:
-    """(ngrids, nao) complex128 analytic AO Fourier transforms at G."""
-    if kpt is not None:
-        raise NotImplementedError("k-point AO Fourier transforms")
+    """(ngrids, nao) complex128 analytic AO Fourier transforms at G (or
+    k+G)."""
     device = resolve_device(device)
     Gv = torch.as_tensor(Gv, dtype=torch.float64, device=device)
+    if kpt is not None:
+        Gv = Gv + torch.as_tensor(kpt, dtype=torch.float64, device=device)
     ng = Gv.shape[0]
     G2 = (Gv * Gv).sum(1)
     out = torch.empty((ng, cell.nao), dtype=torch.complex128, device=device)
@@ -97,9 +98,10 @@ def _axis_values(dA, dB, E, na_max, nb_max):
 
 def overlap_and_kinetic(cell, kpt=None, ktol=1e-16, device=None,
                         chunk_elems: int = 1 << 21):
-    """Closed-form lattice-sum overlap and kinetic matrices (Gamma), as
-    float64 tensors (the reference's ``overlap_and_kinetic_analytic``; its
-    G-space quadrature variant is not ported).
+    """Closed-form lattice-sum overlap and kinetic matrices, float64
+    tensors at Gamma and complex128 at a k-point ``kpt`` (the reference's
+    ``overlap_and_kinetic_analytic``; its G-space quadrature variant is
+    not ported).
 
     Per primitive pair and lattice image the Gaussian product theorem
     reduces both integrals to 1-D moments E_n = int x^n e^{-p x^2} dx.
@@ -107,19 +109,23 @@ def overlap_and_kinetic(cell, kpt=None, ktol=1e-16, device=None,
 
         -1/2 nabla^2 [S_lm(u) e^{-b u^2}] = b(2l+3) phi - 2 b^2 u^2 phi
 
-    so T needs only the same moments with the ket monomial raised by 2.
+    so T needs only the same moments with the ket monomial raised by 2; at a
+    k-point each image carries the Bloch phase e^{i k.T}.
     Images whose Gaussian-product prefactor is below ``ktol`` are dropped,
     as in the reference. ``chunk_elems`` bounds the (bra shells x ket
     shells x primitive pairs x images) elements of one chunk.
     """
-    if kpt is not None and np.abs(kpt).sum() > 1e-12:
-        raise NotImplementedError("k-point overlap/kinetic")
     device = resolve_device(device)
     f64 = dict(dtype=torch.float64, device=device)
     nao = cell.nao
     images = torch.as_tensor(cell.lattice_images(), **f64)          # (nt, 3)
-    S = torch.zeros((nao, nao), **f64)
-    T = torch.zeros((nao, nao), **f64)
+    phase = None
+    if kpt is not None and np.abs(kpt).sum() > 1e-12:
+        phase = torch.exp(1j * (images @ torch.as_tensor(kpt, **f64)))
+    out = dict(dtype=torch.float64 if phase is None else torch.complex128,
+               device=device)
+    S = torch.zeros((nao, nao), **out)
+    T = torch.zeros((nao, nao), **out)
     groups = _shell_groups(cell)
     for li, ctr_i, exp_i, cf_i, cols_i in groups:
         mi, Ci = _monos(li)
@@ -138,14 +144,13 @@ def overlap_and_kinetic(cell, kpt=None, ktol=1e-16, device=None,
                 a = torch.as_tensor(exp_i[i0:i0 + step], **f64)     # (ni, P)
                 ca = torch.as_tensor(cf_i[i0:i0 + step], **f64)     # (ni, P, K)
                 s_blk, m_blk = _pair_moments(A, a, B0, b, images, li, lj,
-                                             mi, mj, ktol)
+                                             mi, mj, ktol, phase)
                 bq = b[None, :, None, :, None, None]
                 t_blk = bq * (2 * lj + 3) * s_blk - 2.0 * bq * bq * m_blk
                 # contractions, then monomials -> solid harmonics
-                s_sh = torch.einsum("ijpqab,ipk,jql,ma,nb->ikmjln",
-                                    s_blk, ca, cb, Ci, Cj)
-                t_sh = torch.einsum("ijpqab,ipk,jql,ma,nb->ikmjln",
-                                    t_blk, ca, cb, Ci, Cj)
+                cc = [x.to(s_blk.dtype) for x in (ca, cb, Ci, Cj)]
+                s_sh = torch.einsum("ijpqab,ipk,jql,ma,nb->ikmjln", s_blk, *cc)
+                t_sh = torch.einsum("ijpqab,ipk,jql,ma,nb->ikmjln", t_blk, *cc)
                 ni = A.shape[0]
                 rows = cols_i.reshape(len(ctr_i), -1)[i0:i0 + ni].reshape(-1)
                 s_sh = s_sh.reshape(len(rows), -1)
@@ -161,12 +166,13 @@ def overlap_and_kinetic(cell, kpt=None, ktol=1e-16, device=None,
     return S, T
 
 
-def _pair_moments(A, a, B0, b, images, li, lj, mi, mj, ktol):
+def _pair_moments(A, a, B0, b, images, li, lj, mi, mj, ktol, phase=None):
     """Image-summed monomial overlaps of primitive pairs.
 
     Returns (s, m), each (ni, nj, P, Q, nmono_i, nmono_j):
     s = sum_T K_T prod_d V_d[al_d][be_d] and m the same with the ket
-    monomial raised by 2 along each axis in turn (summed over axes).
+    monomial raised by 2 along each axis in turn (summed over axes);
+    complex with the per-image Bloch ``phase`` (nt,).
     """
     AB = A[:, None, None, :] - B0[None, :, None, :] - images[None, None]
     AB2 = (AB * AB).sum(-1)                                   # (ni, nj, nt)
@@ -174,6 +180,8 @@ def _pair_moments(A, a, B0, b, images, li, lj, mi, mj, ktol):
     mu = a[:, None, :, None] * b[None, :, None, :] / p
     K = torch.exp(-mu[..., None] * AB2[:, :, None, None, :])  # (..., nt)
     w = torch.where(K > ktol, K, torch.zeros_like(K))
+    if phase is not None:
+        w = w * phase
     nmax = li + lj + 2
     E = [torch.sqrt(torch.pi / p)[..., None]]
     for n in range(1, nmax + 1):
@@ -190,8 +198,8 @@ def _pair_moments(A, a, B0, b, images, li, lj, mi, mj, ktol):
         return V[0][al[0]][be[0]] * V[1][al[1]][be[1]] * V[2][al[2]][be[2]]
 
     shape = tuple(p.shape) + (len(mi), len(mj))
-    s = torch.empty(shape, dtype=p.dtype, device=p.device)
-    m = torch.empty(shape, dtype=p.dtype, device=p.device)
+    s = torch.empty(shape, dtype=w.dtype, device=p.device)
+    m = torch.empty(shape, dtype=w.dtype, device=p.device)
     for ii, al in enumerate(mi):
         for jj, be in enumerate(mj):
             s[..., ii, jj] = (w * mono(al, be)).sum(-1)

@@ -101,9 +101,9 @@ def _qli(x, l: int, i: int):
 
 
 def _potential_matrix(aoR: torch.Tensor, vR: np.ndarray) -> torch.Tensor:
-    """Grid quadrature ao^T diag(vR) ao (ifft's 1/N carries the weight)."""
-    v = torch.as_tensor(vR, dtype=aoR.dtype, device=aoR.device)
-    return (aoR.T * v) @ aoR
+    """Grid quadrature ao^H diag(vR) ao (ifft's 1/N carries the weight)."""
+    v = torch.as_tensor(vR, dtype=aoR.real.dtype, device=aoR.device)
+    return (aoR.conj().T * v) @ aoR
 
 
 def get_vpploc(cell, aoR: torch.Tensor, mesh=None, Gv=None):
@@ -123,21 +123,24 @@ def get_vpploc(cell, aoR: torch.Tensor, mesh=None, Gv=None):
     return _potential_matrix(aoR, vpplocR), vpplocR
 
 
-def get_vppnl(cell, mesh=None, device=None) -> torch.Tensor:
+def get_vppnl(cell, mesh=None, kpt=None, device=None) -> torch.Tensor:
     """Nonlocal separable PP matrix: sum_a,l,ij <ao|p_i^lm> h_ij <p_j^lm|ao>.
 
     Uses the analytic (alias-free) AO Fourier transform, matching the
     reference's FFTDF.get_pp (pyscf/pbc/df/fft.py:87-145); overall scale
-    1/vol with aokG carrying (1/vol)^(1/2). Gamma point only.
+    1/vol with aokG carrying (1/vol)^(1/2). Real at Gamma, complex128 at a
+    k-point ``kpt`` (projectors at k+G, structure factor at G).
     """
     from pyscf_isdf_tpu_torch.ops.ft_ao import ft_ao
 
     mesh = mesh or cell.mesh
     Gv_np = cell.get_Gv(mesh)
-    aokG = ft_ao(cell, Gv_np, device=device) * (1.0 / cell.vol) ** 0.5
+    aokG = ft_ao(cell, Gv_np, kpt=kpt, device=device) * (1.0 / cell.vol) ** 0.5
     device = aokG.device
     Gv = torch.as_tensor(Gv_np, device=device)
-    G_rad = torch.linalg.norm(Gv, dim=1)
+    Gk = Gv if kpt is None else Gv + torch.as_tensor(kpt, dtype=Gv.dtype,
+                                                     device=device)
+    G_rad = torch.linalg.norm(Gk, dim=1)
     coords = torch.as_tensor(cell.coords, device=device)
     nao = cell.nao
     vppnl = torch.zeros((nao, nao), dtype=torch.complex128, device=device)
@@ -153,7 +156,7 @@ def get_vppnl(cell, mesh=None, device=None) -> torch.Tensor:
             hl = torch.as_tensor(np.asarray(h), dtype=torch.complex128,
                                  device=device)
             # pYlm[i, m, g] = q_li(G rl) rl^{l+3/2} pi^{5/4} e^{-(G rl)^2/2} S_lm(G)
-            ang = solid_harmonics(l, Gv, torch)                        # (ng, 2l+1)
+            ang = solid_harmonics(l, Gk, torch)                        # (ng, 2l+1)
             radial = rl ** (l + 1.5) * np.pi**1.25 \
                 * torch.exp(-0.5 * (G_rad * rl) ** 2)
             pYlm = torch.stack([(ang * (radial * _qli(G_rad * rl, l, i))[:, None]).T
@@ -161,7 +164,10 @@ def get_vppnl(cell, mesh=None, device=None) -> torch.Tensor:
             SPG_lm_aoG = torch.einsum("img,gp->imp", SI_conj * pYlm, aokG)
             tmp = torch.einsum("ij,jmp->imp", hl, SPG_lm_aoG)
             vppnl += torch.einsum("imp,imq->pq", SPG_lm_aoG.conj(), tmp)
-    return (vppnl / cell.vol).real
+    vppnl = vppnl / cell.vol
+    if kpt is None or np.allclose(kpt, 0):
+        return vppnl.real
+    return vppnl
 
 
 def get_nuc(cell, aoR: torch.Tensor, mesh=None) -> torch.Tensor:

@@ -1,1 +1,4 @@
 from pyscf_isdf_tpu_torch.scf.hf import SCFSystem, build_scf_system, scf_kernel  # noqa: F401
+from pyscf_isdf_tpu_torch.scf.khf import (  # noqa: F401
+    KSCFSystem, build_kscf_system, kscf_kernel,
+)

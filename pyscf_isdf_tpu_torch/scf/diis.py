@@ -2,8 +2,9 @@
 
 Commutator-error DIIS, the same extrapolation the reference SCF driver
 uses (pyscf/scf/diis.py:40-122 semantics): error vector
-e = X^T (F D S - S D F) X in the orthonormal basis, B-matrix solve with the
-constraint sum c_i = 1. The small (n+1)^2 system is solved on the host.
+e = X^H (F D S - S D F) X in the orthonormal basis (complex at k-points),
+B-matrix Re <e_i, e_j> solve with the constraint sum c_i = 1. The small
+(n+1)^2 system is solved on the host.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ class DIIS:
         B[-1, :] = -1.0
         B[:, -1] = -1.0
         B[-1, -1] = 0.0
-        B[:n, :n] = (E @ E.T).cpu().numpy()
+        B[:n, :n] = (E.conj() @ E.T).real.cpu().numpy()
         rhs = np.zeros(n + 1)
         rhs[-1] = -1.0
         try:

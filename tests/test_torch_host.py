@@ -64,14 +64,21 @@ def test_ewald_madelung_dzvp_cell():
                - ref_coulomb.ewald(ref_diamond(mesh=MESH, basis="gth-dzvp"))) < TOL
 
 
+K_MODULES = ("kpts_helper", "k2gamma", "convert", "scf.khf", "scf.occupations",
+             "df.fftdf_k", "df.isdf_k", "df.isdf_q", "df.isdf_sym")
+
+
 def test_port_imports_no_jax():
-    """Importing every port module leaves jax and the JAX package out of
-    sys.modules (a subprocess: this test process has imported jax)."""
+    """Importing every port module, the k-point ones named, leaves jax and
+    the JAX package out of sys.modules (a subprocess: this test process
+    has imported jax)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import pyscf_isdf_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        f"for m in {K_MODULES!r}:\n"
+        "    assert 'pyscf_isdf_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'pyscf_isdf_tpu' or m.startswith('pyscf_isdf_tpu.')]\n"
         "assert not bad, bad\n"
@@ -89,3 +96,23 @@ def test_entry_point_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_scf_system(diamond_primitive(mesh=MESH))
+
+
+def test_k_entry_points_default_to_cuda(monkeypatch):
+    """build_kscf_system and kscf_kernel take device=None as the GPU: they
+    refuse without CUDA and run with device='cpu'."""
+    import inspect
+
+    from pyscf_isdf_tpu_torch.scf import build_kscf_system, kscf_kernel
+
+    for fn in (build_kscf_system, kscf_kernel):
+        assert inspect.signature(fn).parameters["device"].default is None
+    cell = diamond_primitive(mesh=(7, 7, 7))
+    kpts = np.zeros((1, 3))
+    system = build_kscf_system(cell, kpts, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_kscf_system(cell, kpts)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        kscf_kernel(system, xc="lda,vwn")
+    assert kscf_kernel(system, xc="lda,vwn", device="cpu")["converged"]
