@@ -60,9 +60,9 @@ def unique_q(cell, kpts):
     frac = diffs @ np.linalg.inv(b)
     frac = ((frac + 0.5) % 1.0) - 0.5
     # snap to exact multiples of 1/n on an n-point mesh axis, so the bins
-    # are stable and q carries no rounding (the reference rounds to 8
-    # decimals, which puts 1/3 off by 3e-9 and the per-q phases e^{-iq.r}
-    # off by about 3e-8)
+    # are stable and q carries no rounding: rounding to 8 decimals puts
+    # 1/3 off by 3e-9, and the assembled supercell factorization (whose
+    # phases e^{-iq.r} then miss) off the dense supercell build by 1e-8
     n = coulomb.monkhorst_pack_size(cell, kpts)
     snapped = np.rint(frac * n) / n
     frac = np.where(np.abs(frac - snapped) < 1e-8, snapped, frac)

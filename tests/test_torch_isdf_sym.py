@@ -17,7 +17,7 @@ tr(D (K_fftdf - K_robust)) to 1% at unsaturated c.
 The reference's isdf_q.unique_q rounds the fractional q to 8 decimals,
 so on a 3-point k-mesh axis q = 1/3 is off by 3e-9 and its assembled
 factorization differs from the dense supercell build on the same points
-by 3e-8 relative (test_q_classes_exact); the port snaps q to exact
+by 1e-8 to 1e-7 relative (test_q_classes_exact); the port snaps q to exact
 multiples of 1/n. The parity test therefore hands the reference the
 port's exact q classes.
 """
@@ -125,7 +125,7 @@ def test_q_classes_exact(setup, monkeypatch):
 
     assert max(assembled_vs_dense()) < 1e-12
     monkeypatch.setattr(isdf_q, "unique_q", ref_isdf_q.unique_q)
-    assert min(assembled_vs_dense()) > 1e-9
+    assert 1e-8 < min(assembled_vs_dense()) and max(assembled_vs_dense()) < 1e-7
 
 
 def test_build_assemble_certify_parity(setup, monkeypatch):

@@ -144,6 +144,26 @@ def test_kscf_on_reference_system(systems, ref_krhf):
         ref_kscf(ref, xc="hf", conv_tol=1e-10)
 
 
+def test_ragged_orthogonalizers(systems):
+    """Per-k orthogonalizers of different rank: the eigensolve goes k by
+    k, equals the batched one where the ranks agree, and the SCF in the
+    smaller space converges at or above the full-space energy."""
+    import dataclasses
+
+    from pyscf_isdf_tpu_torch.scf.khf import _eig_all
+
+    _, _, _, port, _ = systems
+    e_b, c_b = _eig_all(port.hcore, port.X)
+    e_l, c_l = _eig_all(port.hcore, port.X[:1] + (port.X[1][:, :-1],))
+    e_0, _ = _eig_all(port.hcore[:1], port.X[:1])
+    assert (e_l[0] - e_b[0]).abs().max() < 1e-12 and (e_0[0] - e_b[0]).abs().max() < 1e-12
+    assert len(e_l[1]) == len(e_b[1]) - 1
+    ragged = dataclasses.replace(port, X=port.X[:1] + (port.X[1][:, :-1],))
+    full = kscf_kernel(port, xc="lda,vwn", conv_tol=1e-10, device="cpu")
+    out = kscf_kernel(ragged, xc="lda,vwn", conv_tol=1e-10, device="cpu")
+    assert out["converged"] and out["e_tot"] > full["e_tot"] - 1e-10
+
+
 def test_unported_options_raise(systems):
     _, _, cell, port, kpts = systems
     for kw in (dict(sigma=0.01), dict(isdf_precision="dd", df="isdf_q"),
