@@ -9,9 +9,9 @@ same Bloch AOs. All float64 on the CPU.
 Bars: equal interpolation-point indices; factorizations within 1e-10
 relative at compressions where the regularized Gram is well conditioned
 (c=2 for isdf_k, c=4 for isdf_q: at c=8 the 1e-12 shift leaves a
-condition number near 1e12, and two Cholesky orderings then differ at
-1e-8 in Xq while the exchange matrices still agree); exchange, Coulomb
-and certificates within 1e-10 relative on the reference's own
+condition number near 1e12, and two Cholesky orderings then need not
+agree to 1e-10 in Xq); exchange, Coulomb, the phased kernel and the
+certificates within 1e-10 relative, at c=8 on the reference's own
 factorization.
 """
 import numpy as np
@@ -65,13 +65,16 @@ def test_unique_q(systems):
 
 def test_isdf_k_build_and_exchange(systems):
     rcell, ref, cell, port, kpts, C = systems
-    f0 = ref_isdf_k.build_isdf_k(rcell, ref.aoR_k, kpts, c=2)
-    f = isdf_k.build_isdf_k(cell, port.aoR_k, kpts, c=2)
+    f0 = ref_isdf_k.build_isdf_k(rcell, ref.aoR_k, kpts, c=2, keep_xi=True)
+    f = isdf_k.build_isdf_k(cell, port.aoR_k, kpts, c=2, keep_xi=True)
     assert np.array_equal(f.ip_idx.numpy(), np.asarray(f0.ip_idx))
     assert rel(f.Ug, f0.Ug) < 1e-10 and rel(f.Wq, f0.Wq) < 1e-10
     dm = C @ C.conj().transpose(0, 2, 1)
     assert rel(isdf_k.get_k_kpts(f, torch.as_tensor(dm)),
                ref_isdf_k.get_k_kpts(f0, dm)) < 1e-10
+    q, G = kpts[1] - kpts[0], cell.reciprocal_vectors()[2]
+    assert rel(isdf_k.w_phased(f, cell, q, G, kpts),
+               ref_isdf_k.w_phased(f0, rcell, q, G, kpts)) < 1e-10
 
 
 @pytest.mark.parametrize("method", ["cholesky", "cholesky-blocked"])
