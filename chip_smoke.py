@@ -387,10 +387,15 @@ def phase_small_k(torch):
         check(abs(e["cuda"] - e["cpu"]) < 1e-8, f"small k-cell {xc}/{df}: card != CPU")
 
 
-def phase_certified(torch, dev="cuda", nrep=(3, 3, 3), pm=(16, 16, 16), c=32.0):
+# the certified path: the JAX package's bench configuration, uncut
+CERT_NREP = (3, 3, 3)          # k-mesh of the primitive cell = supercell repeats
+CERT_MESH = (16, 16, 16)       # primitive-cell mesh (48^3 on the supercell)
+CERT_C = 32.0                  # ISDF compression: n_ip 256 a cell, 6912 in all
+
+
+def phase_certified(torch):
     """The certified translation-symmetric build at full width, assembled
-    onto the supercell and driven through K1 and K2 (the arguments shrink
-    it for a rehearsal on the CPU)."""
+    onto the supercell and driven through K1 and K2."""
     import numpy as np
 
     from pyscf_isdf_tpu_torch import lattice
@@ -404,6 +409,7 @@ def phase_certified(torch, dev="cuda", nrep=(3, 3, 3), pm=(16, 16, 16), c=32.0):
     )
     from pyscf_isdf_tpu_torch.scf import build_kscf_system, kscf_kernel
 
+    dev, nrep, pm, c = "cuda", CERT_NREP, CERT_MESH, CERT_C
     secs = {}
 
     def stage(name, fn):

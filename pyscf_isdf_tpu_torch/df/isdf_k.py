@@ -243,20 +243,15 @@ def w_phased(isdfk: ISDFK, cell, q, Gshift, kpts=None, fft_chunk: int = 64):
     return cell.grid_weight * (Vxi @ (xi_c * phase[None, :]).T)
 
 
-def get_k_kpts(isdfk: ISDFK, dm_k, k1_idx=None):
-    """Exchange via per-q GEMMs: (1/nk) sum_k2 Ug1^H (conj(W_q) o M2) Ug1.
-
-    k1_idx: optional band k-points (the sum still runs over every density
-    k2). Output order follows k1_idx.
-    """
+def get_k_kpts(isdfk: ISDFK, dm_k):
+    """Exchange via per-q GEMMs: (1/nk) sum_k2 Ug1^H (conj(W_q) o M2) Ug1."""
     Ug = isdfk.Ug
     nk = Ug.shape[0]
-    k1_list = range(nk) if k1_idx is None else k1_idx
     dm_k = dm_k.to(Ug.dtype)
     M = Ug @ dm_k @ Ug.conj().transpose(1, 2)                # (nk, nip, nip)
     Wc = isdfk.Wq.conj()
     out = []
-    for k1 in k1_list:
+    for k1 in range(nk):
         inner = (M * Wc[isdfk.qmap[:, k1]]).sum(0)
         out.append(Ug[k1].conj().T @ inner @ Ug[k1] / nk)
     return torch.stack(out)

@@ -248,11 +248,7 @@ def get_j_kpts(isdfq: ISDFQ, dm_k):
     return torch.einsum("kpa,p,kpb->kab", Ag.conj(), u, Ag)
 
 
-def _k1_list(nk, k1_idx):
-    return range(nk) if k1_idx is None else k1_idx
-
-
-def get_k_kpts(isdfq: ISDFQ, dm_k, k1_idx=None):
+def get_k_kpts(isdfq: ISDFQ, dm_k):
     """Fitted exchange: K_k1 = (1/nk) sum_k2 A1^H (M2 o conj(W_q)) A1."""
     Ag = isdfq.Ag
     nk = Ag.shape[0]
@@ -260,10 +256,10 @@ def get_k_kpts(isdfq: ISDFQ, dm_k, k1_idx=None):
     Wc = isdfq.Wq.conj()
     return torch.stack([
         Ag[k1].conj().T @ (M * Wc[isdfq.qmap[:, k1]]).sum(0) @ Ag[k1] / nk
-        for k1 in _k1_list(nk, k1_idx)])
+        for k1 in range(nk)])
 
 
-def get_k_kpts_robust(isdfq: ISDFQ, dm_k, aoR_k, weight, k1_idx=None):
+def get_k_kpts_robust(isdfq: ISDFQ, dm_k, aoR_k, weight):
     """Robust-fit exchange (error quadratic in the fit residual):
 
         K_rob = T + T^H - K_fit,
@@ -283,7 +279,7 @@ def get_k_kpts_robust(isdfq: ISDFQ, dm_k, aoR_k, weight, k1_idx=None):
     t = aoR_k @ dm_k @ AgH                                   # (nk, ng, nip)
     Wc = isdfq.Wq.conj()
     out = []
-    for k1 in _k1_list(nk, k1_idx):
+    for k1 in range(nk):
         iq = isdfq.qmap[:, k1]
         Y = (t * isdfq.VXq[iq].conj().transpose(1, 2)).sum(0)   # (ng, nip)
         T = weight / nk * (aoR_k[k1].conj().T @ (Y @ Ag[k1]))

@@ -6,10 +6,12 @@ Evaluates the periodic AOs
 
 on the uniform FFT grid (functional spec per the reference C kernel
 pyscf/lib/pbc/grid_ao.c:512-680 driven by pyscf/pbc/gto/eval_gto.py:31-165).
-:func:`eval_ao` sums every image for every shell; the production path at
-Gamma is the image-culled kernel of :mod:`pyscf_isdf_tpu_torch.ops.cuda_ao`,
-and at k-points :func:`eval_ao_kpts`, which keeps per shell the images
-that can reach the grid. Gradients (GGA) are spectral:
+:func:`eval_ao` sums every image for every shell at Gamma; the production
+path there is the image-culled kernel of
+:mod:`pyscf_isdf_tpu_torch.ops.cuda_ao`. The Bloch sums at k-points are
+:func:`eval_ao_kpts`, which keeps per shell the images that can reach the
+grid (the port of the reference's ``eval_ao(kpt=)`` and
+``eval_ao_numpy(kpt=)``). Gradients (GGA) are spectral:
 ``grad aoR = ifft(iG * fft(aoR))``.
 """
 from __future__ import annotations
@@ -76,16 +78,13 @@ class PackedBasis:
         return inv
 
 
-def _eval_block(packed: PackedBasis, images, coords, kpts=None,
-                img_chunk: int = 32):
-    """AO values for one grid block in packed order: (nb, nao_padded), or
-    (nk, nb, nao_padded) complex with ``kpts`` (nk, 3)."""
+def _eval_block(packed: PackedBasis, images, coords, img_chunk: int = 32):
+    """AO values for one grid block: (nb, nao_padded) in packed order."""
     nimg = images.shape[0]
     npad = (-nimg) % img_chunk
     # pad with far-away dummy images (contribute exp(-large) = 0)
     imgs = torch.cat([images, torch.full((npad, 3), 1e6, dtype=images.dtype,
                                          device=images.device)])
-    nb = coords.shape[0]
     blocks = []
     for l in packed.ls:
         kw = dict(dtype=coords.dtype, device=coords.device)
@@ -93,11 +92,7 @@ def _eval_block(packed: PackedBasis, images, coords, kpts=None,
         es = torch.as_tensor(packed.exps[l], **kw)                    # (ns,P)
         cs = torch.as_tensor(packed.coeffs[l], **kw)                  # (ns,P,K)
         ns, K = es.shape[0], cs.shape[2]
-        if kpts is None:
-            acc = torch.zeros((ns, nb, K, 2 * l + 1), **kw)
-        else:
-            acc = torch.zeros((kpts.shape[0], ns, nb, K, 2 * l + 1),
-                              dtype=torch.complex128, device=coords.device)
+        acc = torch.zeros((ns, coords.shape[0], K, 2 * l + 1), **kw)
         for i0 in range(0, imgs.shape[0], img_chunk):
             T = imgs[i0:i0 + img_chunk]                                # (nt,3)
             d = (coords[None, :, None, :] - ctr[:, None, None, :]
@@ -105,43 +100,27 @@ def _eval_block(packed: PackedBasis, images, coords, kpts=None,
             r2 = (d * d).sum(-1)
             g = torch.exp(-es[:, None, None, :] * r2[..., None])       # (ns,nb,nt,P)
             ang = solid_harmonics(l, d, torch)                         # (ns,nb,nt,M)
-            if kpts is None:
-                acc += torch.einsum("sntp,spk,sntm->snkm", g, cs, ang)
-            else:
-                ph = torch.exp(1j * (T @ kpts.T))                      # (nt,nk)
-                rad = torch.einsum("sntp,spk->sntk", g, cs)
-                acc += torch.einsum("sntk,sntm,tq->qsnkm", rad.to(ph.dtype),
-                                    ang.to(ph.dtype), ph)
-        blocks.append(acc.transpose(-4, -3).reshape(acc.shape[:-4] + (nb, -1)))
-    return torch.cat(blocks, dim=-1)
+            acc += torch.einsum("sntp,spk,sntm->snkm", g, cs, ang)
+        blocks.append(acc.permute(1, 0, 2, 3).reshape(coords.shape[0], -1))
+    return torch.cat(blocks, dim=1)
 
 
-def eval_ao(packed: PackedBasis, coords, images, kpt=None,
-            block_size: int = 8192):
+def eval_ao(packed: PackedBasis, coords, images, block_size: int = 8192):
     """Evaluate aoR at every grid point, summing every image.
 
     Args:
         packed: PackedBasis of the cell.
         coords: (ngrids, 3) grid coordinates tensor (sets device and dtype).
         images: (nimg, 3) lattice translation vectors tensor.
-        kpt: optional (3,) k-point, or (nk, 3) k-points: complex128 Bloch
-            sums with the phases e^{i k.T}.
         block_size: grid points per block (memory knob).
 
     Returns:
-        (ngrids, nao) AO values in the cell's AO ordering; (nk, ngrids,
-        nao) for a (nk, 3) ``kpt``.
+        (ngrids, nao) AO values in the cell's AO ordering.
     """
-    kpts = None
-    if kpt is not None:
-        kpts = torch.as_tensor(kpt, dtype=coords.dtype,
-                               device=coords.device).reshape(-1, 3)
-    out = torch.cat([_eval_block(packed, images, coords[g0:g0 + block_size], kpts)
-                     for g0 in range(0, coords.shape[0], block_size)], dim=-2)
-    out = out[..., torch.as_tensor(packed.inverse_columns(), device=coords.device)]
-    if kpt is not None and np.ndim(kpt) == 1:
-        out = out[0]
-    return out
+    out = torch.cat([_eval_block(packed, images, coords[g0:g0 + block_size])
+                     for g0 in range(0, coords.shape[0], block_size)])
+    return out[:, torch.as_tensor(packed.inverse_columns(),
+                                  device=coords.device)]
 
 
 def eval_ao_kpts(cell, kpts, coords=None, device=None, img_chunk: int = 32):

@@ -9,7 +9,6 @@ occupation sort touch the host.
 """
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -146,14 +145,13 @@ def _eig_all(F, X):
     return es, cs
 
 
-def _on_device(system: KSCFSystem, device: torch.device) -> KSCFSystem:
-    """``system`` with its tensors on ``device`` (itself if already there)."""
-    if system.aoR_k.device.type == device.type:
-        return system
-    fields = ("S", "hcore", "aoR_k", "coulG", "coulG_pairs", "expmikr")
-    return dataclasses.replace(
-        system, X=tuple(x.to(device) for x in system.X),
-        **{f: getattr(system, f).to(device) for f in fields})
+def _check_device(system: KSCFSystem, device: torch.device) -> None:
+    """Raise unless ``system`` was built on ``device``."""
+    have = system.aoR_k.device
+    if have.type != device.type or (device.index is not None
+                                    and have.index != device.index):
+        raise ValueError(f"the system lives on {have}, not on {device}: "
+                         f"build it with build_kscf_system(..., device={str(device)!r})")
 
 
 def _trace(a, b) -> float:
@@ -168,7 +166,6 @@ def kscf_kernel(
     max_cycle: int = 60,
     conv_tol: float = 1e-10,
     diis_space: int = 8,
-    get_jk=None,
     df: str = "fftdf",
     isdf_c: float = 8.0,
     isdf_precision: Optional[str] = None,
@@ -178,16 +175,15 @@ def kscf_kernel(
     xc_grids: str = "uniform",
     device=None,
 ):
-    """Run the k-point SCF to convergence on ``device`` (default: the GPU;
-    the system's tensors move there if they live elsewhere). xc=None ->
-    KRHF, else KRKS ('hf' is KRHF too).
+    """Run the k-point SCF to convergence on ``device`` (default: the GPU),
+    where ``system`` must have been built. xc=None -> KRHF, else KRKS ('hf'
+    is KRHF too).
 
     ``df='isdf'`` builds the shared-xi k-point ISDF factorization and routes
     exchange through :func:`pyscf_isdf_tpu_torch.df.isdf_k.get_k_kpts`;
     ``df='isdf_q'`` builds the q-resolved factorization and uses its
     robust-fit exchange (:mod:`pyscf_isdf_tpu_torch.df.isdf_q`). J stays on
-    the exact FFT path either way. ``get_jk`` optionally overrides
-    ``(dm_k, with_k) -> (vj, vk)``.
+    the exact FFT path either way.
 
     Smearing (``sigma``), DFT+U (``hubbard``), Becke grids, range-separated
     hybrids, the gdf/aegdf engines and ``isdf_precision='dd'`` are not
@@ -211,7 +207,7 @@ def kscf_kernel(
         raise ValueError(f"unknown df engine {df!r}: use 'fftdf', 'isdf' "
                          "or 'isdf_q'")
     device = resolve_device(device)
-    system = _on_device(system, device)
+    _check_device(system, device)
     cell = system.cell
     nk = len(system.kpts)
     xcspec = XCSpec(xc) if xc is not None else None
@@ -234,47 +230,44 @@ def kscf_kernel(
         ao_grad_k = torch.stack([ao_gradient_fft_k(aoR_k[k], mesh, Gv, kt[k], coords)
                                  for k in range(nk)])        # (nk, 3, ng, nao)
 
-    internal_jk = get_jk is None
-    if get_jk is None:
-        ex_kern = exxdiv if exxdiv not in (None, "ewald") else None
-        if ex_kern is not None:
-            raise NotImplementedError(f"exxdiv={exxdiv!r} with k-points")
-        get_k_fn = None
-        if df == "isdf_q" and need_k:
-            from pyscf_isdf_tpu_torch.df import isdf_q as isdf_q_mod
+    if exxdiv not in (None, "ewald"):
+        raise NotImplementedError(f"exxdiv={exxdiv!r} with k-points")
+    get_k_fn = None
+    if df == "isdf_q" and need_k:
+        from pyscf_isdf_tpu_torch.df import isdf_q as isdf_q_mod
 
-            isdfq = isdf_q_mod.build_isdf_q(cell, aoR_k, system.kpts, c=isdf_c,
-                                            keep_x=True)
+        isdfq = isdf_q_mod.build_isdf_q(cell, aoR_k, system.kpts, c=isdf_c,
+                                        keep_x=True)
 
-            def get_k_fn(dm):
-                return isdf_q_mod.get_k_kpts_robust(isdfq, dm, aoR_k, weight)
-        elif df == "isdf" and need_k:
-            from pyscf_isdf_tpu_torch.df import isdf_k as isdf_k_mod
+        def get_k_fn(dm):
+            return isdf_q_mod.get_k_kpts_robust(isdfq, dm, aoR_k, weight)
+    elif df == "isdf" and need_k:
+        from pyscf_isdf_tpu_torch.df import isdf_k as isdf_k_mod
 
-            isdfk = isdf_k_mod.build_isdf_k(cell, aoR_k, system.kpts, c=isdf_c)
+        isdfk = isdf_k_mod.build_isdf_k(cell, aoR_k, system.kpts, c=isdf_c)
 
-            def get_k_fn(dm):
-                return isdf_k_mod.get_k_kpts(isdfk, dm)
-        elif need_k:
-            kweight = weight / nk
+        def get_k_fn(dm):
+            return isdf_k_mod.get_k_kpts(isdfk, dm)
+    elif need_k:
+        kweight = weight / nk
 
-            def get_k_fn(dm):
-                return fftdf_k.get_k_kpts(aoR_k, dm, system.coulG_pairs,
-                                          system.expmikr, mesh, kweight)
+        def get_k_fn(dm):
+            return fftdf_k.get_k_kpts(aoR_k, dm, system.coulG_pairs,
+                                      system.expmikr, mesh, kweight)
 
-        def get_jk(dm, with_k, C_w_k=None):
-            vj = fftdf_k.get_j_kpts(aoR_k, dm, system.coulG, mesh, weight)
-            if not with_k:
-                return vj, None
-            if C_w_k is not None and df == "fftdf":
-                # occupied-MO fast exchange (reference tagged-DM path,
-                # fft_jk.py:235-259): nao*nocc FFTs per (k1,k2) block
-                vk = fftdf_k.get_k_kpts_occ(aoR_k, aoR_k @ C_w_k,
-                                            system.coulG_pairs, system.expmikr,
-                                            mesh, weight / nk)
-            else:
-                vk = get_k_fn(dm)
-            return vj, vk
+    def get_jk(dm, with_k, C_w_k=None):
+        vj = fftdf_k.get_j_kpts(aoR_k, dm, system.coulG, mesh, weight)
+        if not with_k:
+            return vj, None
+        if C_w_k is not None and df == "fftdf":
+            # occupied-MO fast exchange (reference tagged-DM path,
+            # fft_jk.py:235-259): nao*nocc FFTs per (k1,k2) block
+            vk = fftdf_k.get_k_kpts_occ(aoR_k, aoR_k @ C_w_k,
+                                        system.coulG_pairs, system.expmikr,
+                                        mesh, weight / nk)
+        else:
+            vk = get_k_fn(dm)
+        return vj, vk
 
     S, hcore, X = system.S, system.hcore, system.X
 
@@ -297,10 +290,7 @@ def kscf_kernel(
     conv = False
     C_w_k = None
     for it in range(max_cycle):
-        if internal_jk:
-            vj, vk = get_jk(dm, need_k, C_w_k)
-        else:
-            vj, vk = get_jk(dm, need_k)
+        vj, vk = get_jk(dm, need_k, C_w_k)
         veff = vj.clone()
         e_xc = 0.0
         if is_dft:

@@ -115,4 +115,7 @@ def test_k_entry_points_default_to_cuda(monkeypatch):
         build_kscf_system(cell, kpts)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         kscf_kernel(system, xc="lda,vwn")
+    # a system built on another device is refused, not copied across
+    with pytest.raises(ValueError, match="lives on cpu"):
+        kscf_kernel(system, xc="lda,vwn", device="cuda")
     assert kscf_kernel(system, xc="lda,vwn", device="cpu")["converged"]

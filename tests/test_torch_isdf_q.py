@@ -1,10 +1,11 @@
 """Port k-point ISDF engines (shared-xi isdf_k, q-resolved isdf_q) == JAX
 reference.
 
-The reference's k-system (diamond primitive, 9^3 mesh, shifted (1,1,2)
-k-mesh: k = +-b3/4, neither zero nor its own inverse) is carried across
-with convert.kscf_system_from_numpy, so both packages start from the
-same Bloch AOs. All float64 on the CPU.
+Diamond primitive, 9^3 mesh, shifted (1,1,2) k-mesh: k = +-b3/4, neither
+zero nor its own inverse. Both packages start from the reference's Bloch
+AOs (eval_ao_numpy, as its build_kscf_system makes them), so near-tied
+pivots of the IP selection cannot break differently. All float64 on the
+CPU.
 
 Bars: equal interpolation-point indices; factorizations within 1e-10
 relative at compressions where the regularized Gram is well conditioned
@@ -14,6 +15,8 @@ agree to 1e-10 in Xq); exchange, Coulomb, the phased kernel and the
 certificates within 1e-10 relative, at c=8 on the reference's own
 factorization.
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -24,11 +27,9 @@ from pyscf_isdf_tpu import lattice as ref_lattice  # noqa: E402
 from pyscf_isdf_tpu.df import isdf_k as ref_isdf_k, isdf_q as ref_isdf_q  # noqa: E402
 from pyscf_isdf_tpu.models import diamond_primitive as ref_diamond  # noqa: E402
 from pyscf_isdf_tpu.ops import coulomb as ref_coulomb  # noqa: E402
-from pyscf_isdf_tpu.scf.khf import build_kscf_system as ref_build  # noqa: E402
+from pyscf_isdf_tpu.ops.ao_eval import eval_ao_numpy  # noqa: E402
 
-from pyscf_isdf_tpu_torch.convert import (  # noqa: E402
-    isdfq_from_numpy, kscf_system_from_numpy,
-)
+from pyscf_isdf_tpu_torch.convert import isdfq_from_numpy  # noqa: E402
 from pyscf_isdf_tpu_torch.df import isdf_k, isdf_q  # noqa: E402
 from pyscf_isdf_tpu_torch.models import diamond_primitive  # noqa: E402
 
@@ -42,13 +43,15 @@ def rel(out, ref):
 
 @pytest.fixture(scope="module")
 def systems():
+    """What the engines take, per package: aoR_k, grid weight and mesh."""
     rcell = ref_diamond(mesh=MESH)
     kpts = ref_lattice.make_kpts(rcell.a, [1, 1, 2], with_gamma_point=False)
-    ref = ref_build(rcell, kpts)
+    aoR_k = np.stack([eval_ao_numpy(rcell, kpt=k) for k in kpts])
+    ref = SimpleNamespace(aoR_k=jnp.asarray(aoR_k), weight=rcell.grid_weight,
+                          mesh=tuple(rcell.mesh))
     cell = diamond_primitive(mesh=MESH)
-    port = kscf_system_from_numpy(
-        cell, kpts, ref.S, ref.hcore, ref.X, np.asarray(ref.aoR_k), ref.coulG,
-        ref.coulG_pairs, ref.expmikr, ref.madelung, ref.e_nuc, device="cpu")
+    port = SimpleNamespace(aoR_k=torch.as_tensor(aoR_k), weight=cell.grid_weight,
+                           mesh=tuple(cell.mesh))
     rng = np.random.default_rng(11)
     C = rng.standard_normal((2, cell.nao, 4)) + 1j * rng.standard_normal((2, cell.nao, 4))
     return rcell, ref, cell, port, kpts, C

@@ -83,8 +83,9 @@ def _tr_orbitals(cell, ksys, kpts):
 def setup():
     prim, rprim = diamond_primitive(mesh=PM), ref_diamond(mesh=PM)
     kpts = lattice.make_kpts(prim.a, list(NREP), with_gamma_point=True)
-    # the reference's Bloch AOs in the port's system, so near-tied pivots
-    # of the IP selection cannot reorder between the packages
+    # the reference's Bloch AOs in the port's system: the IP selection of
+    # both packages then sees the same near-tied pivots of this symmetric
+    # cell (with the port's AOs the two break some ties differently)
     aoR_k = np.stack([eval_ao_numpy(rprim, kpt=k) for k in kpts])
     ksys = dataclasses.replace(build_kscf_system(prim, kpts, device="cpu"),
                                aoR_k=torch.as_tensor(aoR_k))
@@ -97,6 +98,16 @@ def setup():
     dm_s = dm_k2gamma(prim, C_w @ C_w.conj().transpose(0, 2, 1), kpts, NREP)
     assert dm_s.dtype == np.float64           # imaginary part below 1e-8
     return rprim, prim, ksys, ssys, kpts, C_w, torch.as_tensor(dm_s)
+
+
+@pytest.fixture(scope="module")
+def built_c4(setup):
+    """The port's per-q build at c=4 (a well-conditioned solve) and its
+    assembled supercell factorization."""
+    _, prim, ksys, ssys, kpts, _, _ = setup
+    sym = isdf_sym.build_sym(prim, NREP, ksys.aoR_k, kpts, ssys.coulG.numpy(),
+                             c=4.0)
+    return sym, isdf_sym.assemble(sym, ssys.aoR, prim.a)
 
 
 def _direct_deficit(fac, ssys, dm_s):
@@ -128,9 +139,10 @@ def test_q_classes_exact(setup, monkeypatch):
     assert 1e-8 < min(assembled_vs_dense()) and max(assembled_vs_dense()) < 1e-7
 
 
-def test_build_assemble_certify_parity(setup, monkeypatch):
-    """Both packages from the same Bloch AOs (the port's) and supercell aoR."""
+def test_build_assemble_certify_parity(setup, built_c4, monkeypatch):
+    """Both packages from the same Bloch AOs and supercell aoR."""
     rprim, prim, ksys, ssys, kpts, C_w, _ = setup
+    sym, fac = built_c4
     monkeypatch.setattr(ref_isdf_q, "unique_q", isdf_q.unique_q)
     coulG = ssys.coulG.numpy()
     aoR_k = ksys.aoR_k.numpy()
@@ -140,8 +152,6 @@ def test_build_assemble_certify_parity(setup, monkeypatch):
     psi = aoR_k @ C_w
     d0 = ref_isdf_sym.certify_deficit(sym0, jnp.asarray(psi))
 
-    sym = isdf_sym.build_sym(prim, NREP, ksys.aoR_k, kpts, coulG, c=4.0)
-    fac = isdf_sym.assemble(sym, ssys.aoR, prim.a)
     assert np.array_equal(sym.isdfq.ip_idx.numpy(), np.asarray(sym0.isdfq.ip_idx))
     assert np.array_equal(fac.ip_idx.numpy(), np.asarray(fac0.ip_idx))
     assert rel(sym.Mq, sym0.Mq) < 1e-10
@@ -171,14 +181,12 @@ def test_assembled_robust_k_exact(setup):
     assert (vk_rob - vk_ref).abs().max() < 1e-8
 
 
-def test_certificate_matches_direct(setup):
+def test_certificate_matches_direct(setup, built_c4):
     """Unsaturated c: the per-q certificate is the supercell trace
     difference at the same (unfolded) density."""
-    _, prim, ksys, ssys, kpts, C_w, dm_s = setup
-    sym = isdf_sym.build_sym(prim, NREP, ksys.aoR_k, kpts, ssys.coulG.numpy(),
-                             c=4.0)
-    _, _, de_direct = _direct_deficit(isdf_sym.assemble(sym, ssys.aoR, prim.a),
-                                      ssys, dm_s)
+    _, _, ksys, ssys, _, C_w, dm_s = setup
+    sym, fac = built_c4
+    _, _, de_direct = _direct_deficit(fac, ssys, dm_s)
     de_cert = isdf_sym.certify_deficit(sym, ksys.aoR_k @ torch.as_tensor(C_w))
     assert de_cert > 0 and de_direct > 0
     assert abs(de_cert - de_direct) < 0.01 * de_direct

@@ -11,12 +11,13 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import jax  # noqa: E402
 
 from pyscf_isdf_tpu import lattice as ref_lattice  # noqa: E402
 from pyscf_isdf_tpu.df import fftdf_k as ref_fftdf_k  # noqa: E402
 from pyscf_isdf_tpu.models import diamond_primitive as ref_diamond  # noqa: E402
 from pyscf_isdf_tpu.ops import coulomb as ref_coulomb, pp as ref_pp  # noqa: E402
-from pyscf_isdf_tpu.ops.ao_eval import eval_ao_numpy  # noqa: E402
+from pyscf_isdf_tpu.ops import xc as ref_xc  # noqa: E402
 from pyscf_isdf_tpu.ops.ft_ao import overlap_and_kinetic as ref_st  # noqa: E402
 from pyscf_isdf_tpu.scf.khf import build_kscf_system as ref_build  # noqa: E402
 from pyscf_isdf_tpu.scf.khf import kscf_kernel as ref_kscf  # noqa: E402
@@ -26,12 +27,25 @@ from pyscf_isdf_tpu_torch.convert import kscf_system_from_numpy  # noqa: E402
 from pyscf_isdf_tpu_torch.df import fftdf_k  # noqa: E402
 from pyscf_isdf_tpu_torch.models import diamond_primitive  # noqa: E402
 from pyscf_isdf_tpu_torch.ops import coulomb, pp  # noqa: E402
-from pyscf_isdf_tpu_torch.ops.ao_eval import PackedBasis, eval_ao  # noqa: E402
 from pyscf_isdf_tpu_torch.ops.ft_ao import overlap_and_kinetic  # noqa: E402
 from pyscf_isdf_tpu_torch.scf import build_kscf_system, kscf_kernel  # noqa: E402
 
 MESH = (9, 9, 9)
 NKS = [1, 1, 2]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_xc_compiled_once():
+    """The reference's XC as one XLA program. Its exc_vxc runs eagerly,
+    so autodiff of PBE compiles each primitive on its own (about 4 s on
+    one core, the larger part of this file's time); under jax.jit the
+    same float64 function compiles once (about 1 s)."""
+    jitted = jax.jit(ref_xc.XCSpec.exc_vxc, static_argnums=0)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(ref_xc.XCSpec, "exc_vxc",
+               lambda self, rho, sigma=None: jitted(self, rho, sigma))
+    yield
+    mp.undo()
 
 
 @pytest.fixture(scope="module")
@@ -58,12 +72,8 @@ def test_host_setup_per_k(systems):
         assert np.abs(T.numpy() - T0).max() < 1e-12
         v0 = ref_pp.get_vppnl(rcell, kpt=k)
         assert np.abs(pp.get_vppnl(cell, kpt=k, device="cpu").numpy() - v0).max() < 1e-12
-        ao0 = eval_ao_numpy(rcell, kpt=k)
-        assert np.abs(port.aoR_k[ik].numpy() - ao0).max() < 1e-12
-        # the dense sum over every image (no per-shell pruning)
-        dense = eval_ao(PackedBasis.from_cell(cell), torch.as_tensor(cell.uniform_grid()),
-                        torch.as_tensor(cell.lattice_images()), kpt=k)
-        assert np.abs(dense.numpy() - ao0).max() < 1e-12
+        # the reference's aoR_k is eval_ao_numpy(kpt=k)
+        assert np.abs(port.aoR_k[ik].numpy() - np.asarray(ref.aoR_k[ik])).max() < 1e-12
     assert np.abs(port.S.numpy() - ref.S).max() < 1e-12
     assert np.abs(port.hcore.numpy() - ref.hcore).max() < 1e-12
 
