@@ -408,6 +408,7 @@ def phase_certified(torch):
         robust_k_cross, robust_k_cross_plain,
     )
     from pyscf_isdf_tpu_torch.scf import build_kscf_system, kscf_kernel
+    from pyscf_isdf_tpu_torch.utils.timing import StageTimer
 
     dev, nrep, pm, c = "cuda", CERT_NREP, CERT_MESH, CERT_C
     secs = {}
@@ -425,7 +426,9 @@ def phase_certified(torch):
     prim = diamond_primitive(mesh=pm)
     kpts = lattice.make_kpts(prim.a, list(nrep), with_gamma_point=True)
     nk = len(kpts)
-    ksys = stage("k-system build", lambda: build_kscf_system(prim, kpts, device=dev))
+    ktimer = StageTimer(dev)
+    ksys = stage("k-system build", lambda: build_kscf_system(prim, kpts, device=dev,
+                                                             timer=ktimer))
     res = stage("k-LDA SCF", lambda: kscf_kernel(ksys, xc="lda,vwn", conv_tol=1e-10,
                                                  device=dev))
     log(f"certified path: primitive diamond gth-szv {pm} nao={prim.nao} nk={nk}; "
@@ -505,6 +508,8 @@ def phase_certified(torch):
     log(f"supercell J + robust K (assembled c={c:g}): {jk_ms:.3f} ms (median of 5)")
     log("certified path stage seconds: " + ", ".join(
         f"{k}={v:.3f}" for k, v in secs.items()))
+    log("k-system build stage seconds: " + ", ".join(
+        f"{k}={sum(v):.3f}" for k, v in ktimer.seconds.items()))
     del fac, aoR, B
     torch.cuda.empty_cache()
     return k2

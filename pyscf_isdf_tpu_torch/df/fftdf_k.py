@@ -23,23 +23,20 @@ from pyscf_isdf_tpu_torch.df.fftdf import fft3, ifft3
 from pyscf_isdf_tpu_torch.ops import coulomb
 
 
-def get_j_kpts(aoR_k, dm_k, coulG, mesh, weight, k_idx=None):
-    """Coulomb matrices at all k (or at the subset ``k_idx``).
+def get_j_kpts(aoR_k, dm_k, coulG, mesh, weight):
+    """Coulomb matrices at all k.
 
     Args:
         aoR_k: (nk, ng, nao) complex Bloch AOs.
         dm_k: (nk, nao, nao) density matrices.
         coulG: (ng,) kernel at q=0.
-        k_idx: optional band k indices — the density still sums over
-            every k, but vj is only assembled at these.
-    Returns (nk, nao, nao) complex vj (len(k_idx) first axis if given).
+    Returns (nk, nao, nao) complex vj.
     """
     nk = aoR_k.shape[0]
     t = aoR_k @ dm_k                                         # (nk, ng, nao)
     rho = (t * aoR_k.conj()).sum((0, 2)).real / nk
     vR = ifft3(coulG * fft3(rho.to(aoR_k.dtype), mesh), mesh).real
-    ao_b = aoR_k if k_idx is None else aoR_k[list(k_idx)]
-    return weight * ((ao_b.conj().transpose(1, 2) * vR) @ ao_b)
+    return weight * ((aoR_k.conj().transpose(1, 2) * vR) @ aoR_k)
 
 
 def make_k_kernels(cell, kpts, exxdiv=None):
