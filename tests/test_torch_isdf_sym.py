@@ -90,8 +90,12 @@ def setup():
     ksys = dataclasses.replace(build_kscf_system(prim, kpts, device="cpu"),
                                aoR_k=torch.as_tensor(aoR_k))
     sc = diamond_supercell(NREP, mesh=tuple(n * m for n, m in zip(NREP, PM)))
+    # the supercell's Γ AOs slab by slab: each call keeps only the images
+    # that reach its slab, half the work of one call over the whole grid
+    slabs = np.array_split(sc.uniform_grid(), 6)
     ssys = SimpleNamespace(       # what the supercell exchange needs
-        aoR=eval_ao_kpts(sc, np.zeros((1, 3)), device="cpu")[0].real.contiguous(),
+        aoR=torch.cat([eval_ao_kpts(sc, np.zeros((1, 3)), coords=c, device="cpu")[0]
+                       for c in slabs]).real.contiguous(),
         coulG=torch.as_tensor(coulomb.get_coulG(sc)), mesh=tuple(sc.mesh),
         weight=sc.grid_weight)
     C_w = _tr_orbitals(prim, ksys, kpts)
