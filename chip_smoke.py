@@ -43,7 +43,24 @@ run from the root of a checkout. Phases, each of which fails the script:
      tr(D(K_fftdf - K_robust)) at the unfolded density against the
      certificate (1%), K2 against its plain version at (110592, 216, 6912)
      (1e-10 relative), and CUDA-event times of one supercell J + robust K
-     and of K2, its plain version and the library formulation there.
+     and of K2, its plain version and the library formulation there;
+  8. the range-separated functionals and the CUDA-graph SCF drivers:
+     (a) scf_kernel(xc='hse06', df='isdf-robust', isdf_c=16,
+     conv_tol=1e-8) on the main path's system with the launch counters
+     zeroed around the system build and the SCF (K2 twice an iteration,
+     K1 at least once), then |tr(D(K_fftdf,eff - K_robust,eff))| < 1e-3 Ha
+     at the final density, K_eff = hyb K_full + (alpha - hyb) K_LR;
+     (b) the Gamma graph driver make_jit_scf_diis (what run_scf_jit_diis
+     runs) with xc='hse06', df='isdf', isdf_c=10, conv_tol=1e-10 from the
+     uniform start against scf_kernel with the same arguments (1e-8 Ha),
+     with its iteration count, capture seconds and the median CUDA-event
+     time of one replayed cycle beside the host loop's mean iteration;
+     (c) the k graph driver on phase 7's k-system: LDA/fftdf against phase
+     7's energy, HSE06/isdf (c=10) against kscf_kernel (1e-8 Ha); (d) card
+     against CPU on small cells: the Gamma host loop for b3lyp, pbesol,
+     hse06 (isdf-robust) and scan, the Gamma graph driver for scan and
+     pbe0/isdf (equal iteration counts), the k host loop for hse06/isdf_q
+     (1e-8 Ha).
 
 It prints the kernels' JSON summary and, as its last line,
 {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -347,10 +364,10 @@ def phase_main(torch):
         f"ngrids={cell.ngrids} n_ip={res['isdf'].n_ip}")
     log("stage seconds: " + ", ".join(
         f"{k}={sum(v):.3f}" for k, v in s.items()
-        if k not in ("J", "K", "XC", "eigh")))
+        if k not in ("J", "K", "XC", "eigh", "cycle")))
     log("per-iteration seconds (mean over calls): " + ", ".join(
         f"{k}={statistics.mean(s[k]):.4f} (n={len(s[k])})"
-        for k in ("J", "K", "XC", "eigh") if k in s))
+        for k in ("J", "K", "XC", "eigh", "cycle") if k in s))
     log(f"main path wall {wall:.1f} s, peak device memory {peak_gb:.2f} GB")
     log(f"e_tot={res['e_tot']:.10f} converged={res['converged']} "
         f"niter={res['niter']}")
@@ -512,7 +529,186 @@ def phase_certified(torch):
         f"{k}={sum(v):.3f}" for k, v in ktimer.seconds.items()))
     del fac, aoR, B
     torch.cuda.empty_cache()
-    return k2
+    return k2, ksys, res["e_tot"]
+
+
+def graph_line(label, stats, host_timer, niter_host):
+    """One line: the driver's cycles, capture seconds and median replayed
+    cycle against the host loop's mean iteration."""
+    ms = stats["cycle_ms"]
+    check(ms, f"{label}: the driver replayed no cycle")
+    host_ms = 1e3 * statistics.mean(host_timer.seconds["cycle"])
+    log(f"{label}: driver {stats['cycles']} cycles ({len(ms)} replayed), capture "
+        f"{stats['capture_s']:.3f} s, replayed cycle median {statistics.median(ms):.3f} ms "
+        f"(min {min(ms):.3f}, max {max(ms):.3f}); host loop {niter_host} iterations, "
+        f"mean {host_ms:.3f} ms an iteration")
+    return dict(cycles=stats["cycles"], capture_s=stats["capture_s"],
+                cycle_ms=statistics.median(ms), host_ms=host_ms)
+
+
+def phase_rsh_main(torch):
+    """8a: HSE06 robust-ISDF host loop at the main path's width, through K1
+    and K2; 8b: the Gamma graph driver against the host loop there."""
+    from pyscf_isdf_tpu_torch.df import fftdf, isdf as isdf_mod
+    from pyscf_isdf_tpu_torch.models import diamond_supercell
+    from pyscf_isdf_tpu_torch.ops import coulomb
+    from pyscf_isdf_tpu_torch.ops.cuda_ao import collocate
+    from pyscf_isdf_tpu_torch.ops.cuda_robust_k import robust_k_cross
+    from pyscf_isdf_tpu_torch.ops.xc import XCSpec
+    from pyscf_isdf_tpu_torch.scf import build_scf_system, scf_kernel
+    from pyscf_isdf_tpu_torch.scf.jit_diis import make_jit_scf_diis
+    from pyscf_isdf_tpu_torch.utils.timing import StageTimer
+
+    timer = StageTimer("cuda")
+    collocate.launches = 0
+    robust_k_cross.launches = 0
+    t0 = time.perf_counter()
+    cell = diamond_supercell((3, 3, 3), mesh=(48, 48, 48))
+    system = build_scf_system(cell, device="cuda", timer=timer)
+    res = scf_kernel(system, xc="hse06", df="isdf-robust", isdf_c=16,
+                     conv_tol=1e-8, timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"ao_collocate": collocate.launches,
+                "robust_k_cross": robust_k_cross.launches}
+
+    spec = XCSpec("hse06")
+    hyb, alpha = spec.hyb, spec.alpha
+    coulG_lr = torch.as_tensor(coulomb.get_coulG(cell, exxdiv=None, omega=spec.omega),
+                               dtype=torch.float64, device="cuda")
+    dm, aoR, w = res["dm"], system.aoR, system.weight
+    with timer("fftdf_k"):
+        vk_fft = hyb * fftdf.get_k(aoR, dm, system.coulG, system.mesh, w, chunk=8) \
+            + (alpha - hyb) * fftdf.get_k(aoR, dm, coulG_lr, system.mesh, w, chunk=8)
+    vk_rob = hyb * isdf_mod.get_k_robust(res["isdf"], aoR, dm, w) \
+        + (alpha - hyb) * isdf_mod.get_k_robust(res["isdf_lr"], aoR, dm, w)
+    deficit = abs(float(torch.einsum("ij,ji->", dm, vk_fft - vk_rob)))
+    s = timer.seconds
+    n_ip = res["isdf"].n_ip
+    log(f"8a HSE06 host loop: diamond 3x3x3 nao={cell.nao} ngrids={cell.ngrids} "
+        f"n_ip={n_ip} (full-range and long-range factorizations, one fit)")
+    log("stage seconds: " + ", ".join(
+        f"{k}={sum(v):.3f}" for k, v in s.items()
+        if k not in ("J", "K", "XC", "eigh", "cycle")))
+    log("per-iteration seconds (mean / median over calls): " + ", ".join(
+        f"{k}={statistics.mean(s[k]):.4f} / {statistics.median(s[k]):.4f} (n={len(s[k])})"
+        for k in ("J", "K", "XC", "eigh", "cycle") if k in s))
+    log(f"8a wall {wall:.1f} s, e_tot={res['e_tot']:.10f} converged={res['converged']} "
+        f"niter={res['niter']}, launches {launches}")
+    log(f"|tr(D(K_fftdf,eff - K_robust,eff))| = {deficit:.3e} Ha (bar 1e-3)")
+    check(res["converged"] and math.isfinite(res["e_tot"]), "8a: HSE06 SCF did not converge")
+    check(launches["robust_k_cross"] == 2 * res["niter"],
+          f"8a: K2 launched {launches['robust_k_cross']} times in {res['niter']} iterations")
+    check(launches["ao_collocate"] > 0, "8a: K1 was not launched")
+    check(deficit < 1e-3, f"8a: robust-K trace deficit {deficit:.3e} Ha >= 1e-3")
+    out = dict(launches=launches, niter=res["niter"], deficit=deficit,
+               shape=[cell.ngrids, cell.nao, n_ip])
+    del res, vk_fft, vk_rob, dm
+    torch.cuda.empty_cache()
+
+    host_timer = StageTimer("cuda")
+    host = scf_kernel(system, xc="hse06", df="isdf", isdf_c=10, conv_tol=1e-10,
+                      timer=host_timer)
+    run = make_jit_scf_diis(system, xc="hse06", df="isdf", isdf_c=10, conv_tol=1e-10)
+    nao = cell.nao
+    _, e_elec, n_iter, conv = run(2.0 / nao * torch.eye(nao, dtype=torch.float64))
+    e_drv = e_elec + system.e_nuc
+    diff = abs(e_drv - host["e_tot"])
+    log(f"8b Gamma graph driver HSE06/isdf c=10: e_tot {e_drv:.10f} ({n_iter} cycles, "
+        f"converged={conv}); host loop {host['e_tot']:.10f} ({host['niter']} iterations, "
+        f"converged={host['converged']}); |diff| {diff:.3e} (bar 1e-8)")
+    out["graph_gamma"] = graph_line("8b", run.stats, host_timer, host["niter"])
+    check(conv and host["converged"], "8b: an SCF did not converge")
+    check(diff <= 1e-8, "8b: graph driver != host loop")
+    del host, run, system
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_graph_k(torch, ksys, e_cell):
+    """8c: the k graph driver on the certified path's k-system."""
+    from pyscf_isdf_tpu_torch.scf import kscf_kernel
+    from pyscf_isdf_tpu_torch.scf.jit_diis import make_kscf_jit_diis
+    from pyscf_isdf_tpu_torch.utils.timing import StageTimer
+
+    nk, _, nao = ksys.aoR_k.shape
+    dm0 = (2.0 / nao * torch.eye(nao, dtype=torch.complex128)).expand(nk, nao, nao)
+    run = make_kscf_jit_diis(ksys, xc="lda,vwn", df="fftdf", conv_tol=1e-10)
+    _, e_elec, n_iter, conv = run(dm0)
+    diff = abs(e_elec + ksys.e_nuc - e_cell)
+    ms = run.stats["cycle_ms"]
+    check(ms, "8c: the LDA driver replayed no cycle")
+    log(f"8c k graph driver LDA/fftdf (nk={nk}): E/cell {e_elec + ksys.e_nuc:.10f} "
+        f"({n_iter} cycles, converged={conv}, replayed cycle median "
+        f"{statistics.median(ms):.3f} ms, capture {run.stats['capture_s']:.3f} s); "
+        f"phase 7 {e_cell:.10f}; |diff| {diff:.3e} (bar 1e-8)")
+    check(conv and diff < 1e-8, "8c: k graph driver LDA != phase 7")
+
+    host_timer = StageTimer("cuda")
+    host = kscf_kernel(ksys, xc="hse06", df="isdf", isdf_c=10, device="cuda",
+                       timer=host_timer)
+    e_host, n_host, host_conv = host["e_tot"], host["niter"], host["converged"]
+    del host
+    torch.cuda.empty_cache()
+    run = make_kscf_jit_diis(ksys, xc="hse06", df="isdf", isdf_c=10)
+    _, e_elec, n_iter, conv = run(dm0)
+    diff = abs(e_elec + ksys.e_nuc - e_host)
+    log(f"8c k graph driver HSE06/isdf c=10: E/cell {e_elec + ksys.e_nuc:.10f} "
+        f"({n_iter} cycles, converged={conv}); host loop {e_host:.10f} "
+        f"({n_host} iterations, converged={host_conv}); |diff| {diff:.3e} (bar 1e-8)")
+    out = graph_line("8c", run.stats, host_timer, n_host)
+    check(conv and host_conv, "8c: an SCF did not converge")
+    check(diff < 1e-8, "8c: k graph driver != host loop")
+    del run
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_small_rsh(torch):
+    """8d: the new functionals and the graph driver, card against CPU."""
+    from pyscf_isdf_tpu_torch import build_cell, lattice
+    from pyscf_isdf_tpu_torch.models import diamond_primitive
+    from pyscf_isdf_tpu_torch.scf import (
+        build_kscf_system, build_scf_system, kscf_kernel, scf_kernel,
+    )
+    from pyscf_isdf_tpu_torch.scf.jit_diis import run_scf_jit_diis
+
+    cell = build_cell([[0.0, 1.7834, 1.7834], [1.7834, 0.0, 1.7834],
+                       [1.7834, 1.7834, 0.0]],
+                      [["C", (0.0, 0.0, 0.0)], ["C", (0.93, 0.87, 0.90)]],
+                      "gth-szv", pseudo="gth-pade", mesh=(12, 12, 12), unit="Angstrom")
+    systems = {dev: build_scf_system(cell, device=dev) for dev in ("cuda", "cpu")}
+
+    def compare(label, e, n=None):
+        log(f"8d {label}: e_tot card {e['cuda']:.12f}, cpu {e['cpu']:.12f}, |diff| "
+            f"{abs(e['cuda'] - e['cpu']):.3e} (bar 1e-8)"
+            + (f", iterations {n['cuda']} / {n['cpu']}" if n else ""))
+        check(abs(e["cuda"] - e["cpu"]) < 1e-8, f"8d {label}: card != CPU")
+        check(n is None or n["cuda"] == n["cpu"], f"8d {label}: iteration counts differ")
+
+    for xc, df in (("b3lyp", "fftdf"), ("pbesol", "fftdf"), ("hse06", "isdf-robust"),
+                   ("scan", "fftdf")):
+        e = {}
+        for dev, system in systems.items():
+            res = scf_kernel(system, xc=xc, df=df, conv_tol=1e-10)
+            check(res["converged"], f"8d {xc}/{df} on {dev} did not converge")
+            e[dev] = res["e_tot"]
+        compare(f"host loop {xc}/{df}", e)
+    for xc, df in (("scan", "isdf"), ("pbe0", "isdf")):
+        e, n = {}, {}
+        for dev, system in systems.items():
+            e[dev], _, n[dev], conv = run_scf_jit_diis(system, xc=xc, df=df)
+            check(conv, f"8d graph driver {xc}/{df} on {dev} did not converge")
+        compare(f"graph driver {xc}/{df}", e, n)
+    kcell = diamond_primitive(mesh=(9, 9, 9))
+    kpts = lattice.make_kpts(kcell.a, [1, 1, 2], with_gamma_point=False)
+    e = {}
+    for dev in ("cuda", "cpu"):
+        res = kscf_kernel(build_kscf_system(kcell, kpts, device=dev), xc="hse06",
+                          df="isdf_q", isdf_c=8, conv_tol=1e-10, device=dev)
+        check(res["converged"], f"8d k hse06/isdf_q on {dev} did not converge")
+        e[dev] = res["e_tot"]
+    compare("k host loop hse06/isdf_q (9^3, 1x1x2 shifted)", e)
 
 
 def main():
@@ -564,7 +760,14 @@ def main():
     check(n_ip == 16 * 216, f"main path n_ip={n_ip}, K2 was timed at 3456")
     torch.cuda.empty_cache()
     phase_small_k(torch)
-    cert = phase_certified(torch)
+    cert, ksys, e_cell = phase_certified(torch)
+    t8 = time.perf_counter()
+    rsh = phase_rsh_main(torch)
+    rsh["graph_k"] = phase_graph_k(torch, ksys, e_cell)
+    del ksys
+    torch.cuda.empty_cache()
+    phase_small_rsh(torch)
+    log(f"phase 8: {time.perf_counter() - t8:.1f} s")
 
     kernels = [
         dict(name="ao_collocate", route="cuda",
@@ -573,7 +776,8 @@ def main():
              launches=launches["ao_collocate"], max_abs_err=k1["err"],
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None,
-             certified=dict(launches=cert["k1_launches"])),
+             certified=dict(launches=cert["k1_launches"]),
+             hse06=dict(launches=rsh["launches"]["ao_collocate"])),
         dict(name="robust_k_cross", route="cuda",
              source="pyscf_isdf_tpu_torch/csrc/robust_k.cu",
              replaces="pyscf_isdf_tpu/ops/pallas_robust_k.py:41",
@@ -584,7 +788,9 @@ def main():
                             max_rel_err=cert["err_rel"], ms=cert["ms"],
                             plain_ms=cert["plain_ms"], bound_ms=cert["bound_ms"],
                             bound_by=cert["bound_by"],
-                            library_ms=cert["library_ms"])),
+                            library_ms=cert["library_ms"]),
+             hse06=dict(launches=rsh["launches"]["robust_k_cross"], niter=rsh["niter"],
+                        shape=rsh["shape"])),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

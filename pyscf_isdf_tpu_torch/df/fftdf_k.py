@@ -39,13 +39,14 @@ def get_j_kpts(aoR_k, dm_k, coulG, mesh, weight):
     return weight * ((aoR_k.conj().transpose(1, 2) * vR) @ aoR_k)
 
 
-def make_k_kernels(cell, kpts, exxdiv=None):
+def make_k_kernels(cell, kpts, exxdiv=None, omega=None):
     """Host-precompute per-(k1,k2) Coulomb kernels and phase factors.
 
     Returns (coulG_pairs (nk,nk,ng) float64, expmikr (nk,nk,ng) complex128)
     with expmikr[k2,k1] = exp(-i (k2-k1).r). exxdiv='ewald' is handled
     post-hoc via the madelung shift, so kernels use exxdiv=None
-    (fft_jk.py:267-270 semantics).
+    (fft_jk.py:267-270 semantics). ``omega`` > 0 gives the long-range
+    (erf), < 0 the short-range (erfc) kernels of range-separated exchange.
     """
     kpts = np.reshape(kpts, (-1, 3))
     nk = len(kpts)
@@ -57,7 +58,8 @@ def make_k_kernels(cell, kpts, exxdiv=None):
     for k2 in range(nk):
         for k1 in range(nk):
             q = kpts[k2] - kpts[k1]
-            coulG[k2, k1] = coulomb.get_coulG(cell, k=q, exxdiv=ex, kpts=kpts)
+            coulG[k2, k1] = coulomb.get_coulG(cell, k=q, exxdiv=ex, kpts=kpts,
+                                              omega=omega)
             expmikr[k2, k1] = np.exp(-1j * coords @ q)
     return coulG, expmikr
 

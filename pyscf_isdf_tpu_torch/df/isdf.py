@@ -75,27 +75,54 @@ def _build_from_idx(aoR, ip_idx, coulG, mesh, weight, fft_chunk: int = 128,
                     keep_v: bool = False, timer=None):
     """Steps 2+3 of the ISDF build for a given IP set.
 
-    Each ``fft_chunk`` rows of xi are FFT'd once and contracted into W
-    columns; ``keep_v`` also keeps V xi = ifft(coulG fft(xi)) (needed by
-    the robust-fit K). Returns (aoRg, W, Vxi or None).
+    ``coulG`` is one kernel (ng,) or a stack (nw, ng): the interpolation
+    vectors are solved once and one W is built per kernel (the
+    range-separated path builds the full-range and long-range W from one
+    fit). Each ``fft_chunk`` rows of xi are FFT'd once and contracted into
+    W columns for every kernel; ``keep_v`` also keeps
+    V xi = ifft(coulG fft(xi)) per kernel (needed by the robust-fit K).
+    Returns (aoRg, W, Vxi or None), W and Vxi with a leading kernel axis
+    when ``coulG`` is a stack.
     """
     timer = timer or null_timer
     aoRg = aoR[ip_idx]                                    # (nip, nao)
     with timer("isdf_xi"):
         xi = _solve_xi(aoR, aoRg)                         # (nip, ng)
     with timer("isdf_w_vxi"):
+        squeeze = coulG.dim() == 1
+        coulGs = coulG[None] if squeeze else coulG         # (nw, ng)
+        nw = coulGs.shape[0]
         nip, ng = xi.shape
-        W = torch.empty((nip, nip), dtype=aoR.dtype, device=aoR.device)
-        Vxi = torch.empty_like(xi) if keep_v else None
+        W = torch.empty((nw, nip, nip), dtype=aoR.dtype, device=aoR.device)
+        Vxi = (torch.empty((nw, nip, ng), dtype=aoR.dtype, device=aoR.device)
+               if keep_v else None)
         for i0 in range(0, nip, fft_chunk):
-            v = ifft3(coulG * fft3(_complex(xi[i0:i0 + fft_chunk]), mesh),
-                      mesh).real
-            W[:, i0:i0 + fft_chunk] = xi @ v.T
-            if keep_v:
-                Vxi[i0:i0 + fft_chunk] = v
+            fG = fft3(_complex(xi[i0:i0 + fft_chunk]), mesh)
+            for iw in range(nw):
+                v = ifft3(coulGs[iw] * fG, mesh).real
+                W[iw, :, i0:i0 + fft_chunk] = xi @ v.T
+                if keep_v:
+                    Vxi[iw, i0:i0 + fft_chunk] = v
         W = weight * W
-        W = 0.5 * (W + W.T)
+        W = 0.5 * (W + W.transpose(1, 2))
+    if squeeze:
+        return aoRg, W[0], (Vxi[0] if keep_v else None)
     return aoRg, W, Vxi
+
+
+def _select(aoR, n_ip, c, method, timer):
+    """Step 1: the interpolation points (default c * nao of them)."""
+    if n_ip is None:
+        n_ip = int(c * aoR.shape[1])
+    n_ip = min(n_ip, aoR.shape[0])
+    with timer("isdf_select"):
+        if method == "cholesky":
+            return pivoted_cholesky_points(aoR, n_ip)[0]
+        if method == "cholesky-blocked":
+            return pivoted_cholesky_points_blocked(aoR, n_ip)[0]
+    if method in ("cvt", "atomic"):
+        raise NotImplementedError(f"IP selection {method!r}")
+    raise ValueError(f"unknown IP selection method {method!r}")
 
 
 def build_isdf(aoR, coulG, mesh, weight, n_ip=None, c: float = 8.0,
@@ -116,23 +143,35 @@ def build_isdf(aoR, coulG, mesh, weight, n_ip=None, c: float = 8.0,
         raise NotImplementedError(f"isdf precision {precision!r}: the port "
                                   "solves in the working dtype (float64)")
     timer = timer or null_timer
-    nao = aoR.shape[1]
-    if n_ip is None:
-        n_ip = int(c * nao)
-    n_ip = min(n_ip, aoR.shape[0])
-    with timer("isdf_select"):
-        if method == "cholesky":
-            ip_idx, _ = pivoted_cholesky_points(aoR, n_ip)
-        elif method == "cholesky-blocked":
-            ip_idx, _ = pivoted_cholesky_points_blocked(aoR, n_ip)
-        elif method in ("cvt", "atomic"):
-            raise NotImplementedError(f"IP selection {method!r}")
-        else:
-            raise ValueError(f"unknown IP selection method {method!r}")
+    ip_idx = _select(aoR, n_ip, c, method, timer)
     coulG = torch.as_tensor(coulG, dtype=aoR.dtype, device=aoR.device)
     aoRg, W, Vxi = _build_from_idx(aoR, ip_idx, coulG, tuple(mesh), weight,
                                    keep_v=keep_v, timer=timer)
     return ISDF(aoRg=aoRg, W=W, ip_idx=ip_idx, Vxi=Vxi)
+
+
+def build_isdf_multi(aoR, coulGs, mesh, weight, n_ip=None, c: float = 8.0,
+                     method: str = "cholesky", keep_v: bool = False,
+                     precision: str | None = None, timer=None) -> tuple:
+    """One factorization, several Coulomb kernels (e.g. full-range and
+    long-range for a range-separated hybrid).
+
+    Returns a tuple of :class:`ISDF` sharing aoRg and ip_idx, one per
+    kernel in ``coulGs``: the IP selection and the interpolation-vector
+    solve are done once. Arguments as :func:`build_isdf`.
+    """
+    if precision is not None:
+        raise NotImplementedError(f"isdf precision {precision!r}: the port "
+                                  "solves in the working dtype (float64)")
+    timer = timer or null_timer
+    ip_idx = _select(aoR, n_ip, c, method, timer)
+    stack = torch.stack([torch.as_tensor(g, dtype=aoR.dtype, device=aoR.device)
+                         for g in coulGs])
+    aoRg, W, Vxi = _build_from_idx(aoR, ip_idx, stack, tuple(mesh), weight,
+                                   keep_v=keep_v, timer=timer)
+    return tuple(ISDF(aoRg=aoRg, W=W[i], ip_idx=ip_idx,
+                      Vxi=(Vxi[i] if keep_v else None))
+                 for i in range(len(coulGs)))
 
 
 def get_k(isdf: ISDF, dm):

@@ -193,16 +193,15 @@ def build_isdf_k(cell, aoR_k, kpts, n_ip=None, c: float = 8.0,
         keep_xi: retain the interpolation vectors (n_ip x ngrids), needed
             by :func:`w_phased`.
         exxdiv: None; 'ewald' is the SCF loop's madelung shift (pass None
-            for it). The 'vcut_*' kernels, ``omega`` (range separation),
-            ``precision='dd'`` and the CVT selection are not ported and
-            raise ``NotImplementedError``.
+            for it). The 'vcut_*' kernels, ``precision='dd'`` and the CVT
+            selection are not ported and raise ``NotImplementedError``.
+        omega: range separation of the per-q kernels (> 0 long-range erf,
+            < 0 short-range erfc), for range-separated exchange.
         method: 'cholesky', 'cholesky-blocked' or 'auto'.
     """
     if precision is not None:
         raise NotImplementedError(f"build precision {precision!r}: the port "
                                   "solves in float64")
-    if omega:
-        raise NotImplementedError("range-separated ISDF kernels (omega)")
     kpts = np.reshape(np.asarray(kpts), (-1, 3))
     nk, ng, nao = aoR_k.shape
     if n_ip is None:
@@ -212,7 +211,8 @@ def build_isdf_k(cell, aoR_k, kpts, n_ip=None, c: float = 8.0,
     ip_idx = select_ips(U, n_ip, method, blk)
     q_list, qmap = unique_q(cell, kpts)
     coulG_q = torch.as_tensor(np.stack([
-        coulomb.get_coulG(cell, k=q, exxdiv=exxdiv, kpts=kpts) for q in q_list
+        coulomb.get_coulG(cell, k=q, exxdiv=exxdiv, kpts=kpts, omega=omega or None)
+        for q in q_list
     ]), dtype=torch.float64, device=aoR_k.device)
     Wq, xi = _xi_wq(U, ip_idx, coulG_q, tuple(cell.mesh), cell.grid_weight)
     return ISDFK(Ug=U3[:, ip_idx, :], Wq=Wq, qmap=qmap, ip_idx=ip_idx,
@@ -244,14 +244,21 @@ def w_phased(isdfk: ISDFK, cell, q, Gshift, kpts=None, fft_chunk: int = 64):
 
 
 def get_k_kpts(isdfk: ISDFK, dm_k):
-    """Exchange via per-q GEMMs: (1/nk) sum_k2 Ug1^H (conj(W_q) o M2) Ug1."""
+    """Exchange via per-q GEMMs: (1/nk) sum_k2 Ug1^H (conj(W_q) o M2) Ug1.
+
+    The sum over k2 accumulates conj(M2) o W_q one pair at a time (the q
+    index read on the host, so no index tensor reaches the device and the
+    loop can be captured into a CUDA graph) and conjugates once: no
+    (nk, n_ip, n_ip) gather of W per band k-point.
+    """
     Ug = isdfk.Ug
     nk = Ug.shape[0]
     dm_k = dm_k.to(Ug.dtype)
-    M = Ug @ dm_k @ Ug.conj().transpose(1, 2)                # (nk, nip, nip)
-    Wc = isdfk.Wq.conj()
+    Mc = Ug.conj() @ dm_k.conj() @ Ug.transpose(1, 2)        # conj(M), (nk, nip, nip)
     out = []
     for k1 in range(nk):
-        inner = (M * Wc[isdfk.qmap[:, k1]]).sum(0)
-        out.append(Ug[k1].conj().T @ inner @ Ug[k1] / nk)
+        inner = Mc[0] * isdfk.Wq[int(isdfk.qmap[0, k1])]
+        for k2 in range(1, nk):
+            inner.addcmul_(Mc[k2], isdfk.Wq[int(isdfk.qmap[k2, k1])])
+        out.append(Ug[k1].conj().T @ inner.conj() @ Ug[k1] / nk)
     return torch.stack(out)

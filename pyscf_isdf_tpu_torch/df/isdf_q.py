@@ -143,8 +143,9 @@ def _ksub(cell, kpts, q_list):
     return ksub
 
 
-def coulG_table(cell, kpts, q_list, exxdiv=None):
-    """(nq, ng) per-q Coulomb kernels, the q=0 one symmetrized over G -> -G.
+def coulG_table(cell, kpts, q_list, exxdiv=None, omega=None):
+    """(nq, ng) per-q Coulomb kernels (range-separated with ``omega``), the
+    q=0 one symmetrized over G -> -G.
 
     On non-orthogonal lattices the fftfreq Nyquist planes make |G|^2
     index-asymmetric (the -n/2 frequency is kept, +n/2 aliases onto it);
@@ -152,7 +153,8 @@ def coulG_table(cell, kpts, q_list, exxdiv=None):
     taking .real of the ifft, and this keeps the complex q=0 sector on the
     same convention.
     """
-    coulG_q = np.stack([coulomb.get_coulG(cell, k=q, exxdiv=exxdiv, kpts=kpts)
+    coulG_q = np.stack([coulomb.get_coulG(cell, k=q, exxdiv=exxdiv, kpts=kpts,
+                                          omega=omega)
                         for q in q_list])
     mesh3 = tuple(cell.mesh)
     neg = np.ravel_multi_index(
@@ -182,15 +184,15 @@ def build_isdf_q(cell, aoR_k, kpts, n_ip=None, c: float = 16.0,
         coulG_q: optional caller-supplied (nq, ng) kernel table in q_list
             order (e.g. the coset slices of a supercell kernel,
             df/isdf_sym.py).
+        omega: range separation of the per-q kernels (> 0 long-range erf,
+            < 0 short-range erfc), for range-separated exchange.
 
-    ``precision='dd'``, ``method='cvt'`` and ``omega`` (range separation)
-    are not ported yet and raise ``NotImplementedError``.
+    ``precision='dd'`` and ``method='cvt'`` are not ported yet and raise
+    ``NotImplementedError``.
     """
     if precision is not None:
         raise NotImplementedError(f"build precision {precision!r}: the port "
                                   "solves in float64")
-    if omega:
-        raise NotImplementedError("range-separated ISDF kernels (omega)")
     kpts = np.reshape(np.asarray(kpts), (-1, 3))
     nk, ng, nao = aoR_k.shape
     dev = aoR_k.device
@@ -209,7 +211,7 @@ def build_isdf_q(cell, aoR_k, kpts, n_ip=None, c: float = 16.0,
     nq = len(q_list)
     ksub = _ksub(cell, kpts, q_list)
     if coulG_q is None:
-        coulG_q = coulG_table(cell, kpts, q_list, exxdiv)
+        coulG_q = coulG_table(cell, kpts, q_list, exxdiv, omega or None)
     elif np.shape(coulG_q) != (nq, ng):
         raise ValueError(f"coulG_q must be ({nq}, {ng}), got {np.shape(coulG_q)}")
     coulG_q = torch.as_tensor(np.asarray(coulG_q), dtype=torch.float64, device=dev)

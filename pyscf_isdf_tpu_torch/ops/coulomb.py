@@ -10,10 +10,12 @@ Host-side float64 builders for per-geometry constants (3-D cells):
     (reference: pyscf/pbc/gto/cell.py:648-800),
   * :func:`madelung` — probe-charge Madelung constant, = -2 x ewald energy
     of a unit point charge in the (k-mesh-scaled) cell
-    (reference: pyscf/pbc/tools/pbc.py:483-512).
+    (reference: pyscf/pbc/tools/pbc.py:483-512),
+  * :func:`madelung_omega` — the same under the long-range erf(w r)/r
+    kernel (range-separated exchange).
 
-The low-dimensional kernels, 'vcut_ws', 'vcut_sph' at a k-point and
-range separation are not ported yet and raise ``NotImplementedError``.
+The low-dimensional kernels, 'vcut_ws' and 'vcut_sph' at a k-point are
+not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,12 +39,12 @@ def get_coulG(cell, k=None, exxdiv=None, mesh=None, Gv=None, kpts=None,
             exchange matrix elements ('vcut_sph' at Gamma only).
         kpts: the full k-point set; 'ewald' scales the probe-charge shift
             by its Monkhorst-Pack size.
+        omega: range separation: > 0 the long-range erf(w r)/r kernel,
+            < 0 the short-range erfc(|w| r)/r kernel.
 
     At a k-point, k+G beyond the FFT box is folded back into it, so Gamma
     and k-point calculations agree.
     """
-    if omega:
-        raise NotImplementedError("range-separated Coulomb kernels (omega)")
     if cell.dimension != 3:
         raise NotImplementedError("low-dimensional Coulomb kernels")
     if exxdiv not in (None, "ewald", "vcut_sph"):
@@ -87,6 +89,16 @@ def get_coulG(cell, k=None, exxdiv=None, mesh=None, Gv=None, kpts=None,
             coulG[G0_idx] += len(kpts) * cell.vol * madelung(cell, kpts)
     if equal2boundary is not None:
         coulG[equal2boundary] = 0
+    if omega:
+        if omega > 0:
+            coulG *= np.exp(-0.25 / omega**2 * absG2)
+        else:
+            coulG *= 1 - np.exp(-0.25 / omega**2 * absG2)
+            # the short-range kernel is finite at G=0:
+            # lim 4pi/G^2 (1 - e^{-G^2/4w^2}) = pi/w^2, so short-range
+            # exchange needs no probe-charge correction
+            if exxdiv is None:
+                coulG[absG2 < 1e-12] = np.pi / omega**2
     return coulG
 
 
@@ -143,6 +155,33 @@ def madelung(cell, kpts=None) -> float:
         Nk = monkhorst_pack_size(cell, np.reshape(kpts, (-1, 3)))
     scaled = dataclasses.replace(cell.madelung_cell(), a=cell.a * Nk[:, None])
     return -2.0 * ewald(scaled)
+
+
+def madelung_omega(cell, kpts, omega: float) -> float:
+    """Probe-charge Madelung constant under the long-range erf(w r)/r
+    kernel: the self-interaction of one probe charge in the Nk-scaled
+    supercell (reference semantics: pyscf/pbc/tools/pbc.py:492-512),
+
+        M_w = 2 w / sqrt(pi) - (1/vol) sum_{G != 0} 4 pi/G^2 e^{-G^2/4w^2},
+
+    on the mesh of the precision-driven cutoff of the reference formula.
+    """
+    omega = abs(float(omega))
+    if kpts is None:
+        Nk = np.ones(3, dtype=int)
+    else:
+        Nk = monkhorst_pack_size(cell, np.reshape(kpts, (-1, 3)))
+    a = cell.a * Nk[:, None]
+    Ecut = 10.0
+    for _ in range(2):
+        Ecut = np.log(16 * np.pi**2 / (2 * omega**2 * np.sqrt(2 * Ecut))
+                      / cell.precision + 1.0) * 2 * omega**2
+    Gv = lattice.get_Gv(a, lattice.cutoff_to_mesh(a, Ecut))
+    absG2 = np.einsum("gi,gi->g", Gv, Gv)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        wcoul = 4 * np.pi / absG2 * np.exp(-0.25 / omega**2 * absG2)
+    wcoul[absG2 < 1e-12] = 0.0
+    return 2 * omega / np.sqrt(np.pi) - wcoul.sum() / abs(np.linalg.det(a))
 
 
 def monkhorst_pack_size(cell, kpts, tol=1e-5):

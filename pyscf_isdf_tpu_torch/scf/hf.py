@@ -127,6 +127,72 @@ def _vxc_gga(aoR, ao_grad, dm, weight, xc: XCSpec):
     return e_xc, vmat, n_elec
 
 
+def _vxc_mgga(aoR, ao_grad, dm, weight, xc: XCSpec):
+    """tau-rung quadrature: rho, sigma and tau = 1/2 sum_x (grad_x ao D)
+    . grad_x ao from the spectral AO gradients of the GGA path; the
+    potential gains the tau term 1/2 w grad_ao^T (vtau grad_ao)."""
+    t = aoR @ dm                                    # (ng, nao)
+    rho = (t * aoR).sum(-1)
+    grad_rho = 2.0 * torch.einsum("gi,xgi->xg", t, ao_grad)
+    sigma = (grad_rho * grad_rho).sum(0)
+    tau = 0.5 * ((ao_grad @ dm) * ao_grad).sum((0, 2))
+    exc, vrho, vsigma, vtau = xc.exc_vxc_mgga(rho, sigma, tau)
+    e_xc = weight * torch.sum(rho * exc)
+    aow = 0.5 * vrho[:, None] * aoR + 2.0 * torch.einsum(
+        "xg,xgi->gi", grad_rho * vsigma, ao_grad)
+    half = weight * (aoR.T @ aow)
+    nao = aoR.shape[1]
+    vtau_term = 0.5 * weight * ((ao_grad * vtau[:, None]).reshape(-1, nao).T
+                                @ ao_grad.reshape(-1, nao))
+    vmat = half + half.T + vtau_term
+    n_elec = weight * torch.sum(rho)
+    return e_xc, vmat, n_elec
+
+
+def _vxc(aoR, ao_grad, dm, weight, xc: XCSpec):
+    """(e_xc, vxc, n_elec) on the uniform grid for an LDA, GGA or meta-GGA
+    (e_xc and n_elec as device scalars)."""
+    if xc.family == "mgga":
+        return _vxc_mgga(aoR, ao_grad, dm, weight, xc)
+    if xc.family == "gga":
+        return _vxc_gga(aoR, ao_grad, dm, weight, xc)
+    return _vxc_lda(aoR, dm, weight, xc)
+
+
+def rsh_coeffs(xcspec) -> tuple:
+    """(hyb, alpha, omega) of a functional, (1, 1, 0) for RHF (None).
+
+    K_eff = hyb K_full + (alpha - hyb) K_LR(omega) for a range-separated
+    hybrid (omega != 0), hyb K_full otherwise."""
+    if xcspec is None:
+        return 1.0, 1.0, 0.0
+    return xcspec.hyb, xcspec.alpha, xcspec.omega
+
+
+def exchange_engines(system, df, coulGs, isdf_c, timer=None):
+    """Exchange functions ``dm -> K`` of one engine, one per Coulomb kernel
+    in ``coulGs``, and the factorizations they use.
+
+    'isdf' and 'isdf-robust' share one IP selection and xi fit across the
+    kernels (:func:`~pyscf_isdf_tpu_torch.df.isdf.build_isdf_multi`);
+    'fftdf' is the exact pair-density FFT build. Returns (functions,
+    factorizations), the latter empty for 'fftdf'.
+    """
+    aoR, mesh, weight = system.aoR, system.mesh, system.weight
+    if df == "fftdf":
+        return [lambda dm, g=g: fftdf.get_k(aoR, dm, g, mesh, weight)
+                for g in coulGs], ()
+    from pyscf_isdf_tpu_torch.df import isdf as isdf_mod
+
+    robust = df == "isdf-robust"
+    facs = isdf_mod.build_isdf_multi(aoR, coulGs, mesh, weight, c=isdf_c,
+                                     keep_v=robust, timer=timer)
+    if robust:
+        return [lambda dm, f=f: isdf_mod.get_k_robust(f, aoR, dm, weight)
+                for f in facs], facs
+    return [lambda dm, f=f: isdf_mod.get_k(f, dm) for f in facs], facs
+
+
 def make_rdm1(mo_coeff: torch.Tensor, nocc: int) -> torch.Tensor:
     c = mo_coeff[:, :nocc]
     return 2.0 * c @ c.T
@@ -159,24 +225,31 @@ def scf_kernel(
     """Run the SCF to convergence on the system's device.
 
     Args:
-        xc: None for RHF, else 'lda,vwn', 'pbe', 'pbe0' or 'hf'.
+        xc: None for RHF, else a functional name of
+            :class:`~pyscf_isdf_tpu_torch.ops.xc.XCSpec` ('lda,vwn', 'pbe',
+            'pbe0', 'b3lyp', 'hse06', 'scan', 'hf', ...).
         get_jk: optional override ``(dm, with_k) -> (vj, vk)``.
         df: 'fftdf' (exact pair-density FFT exchange), 'isdf' (ISDF
             factorization built here, GEMM-cost exchange) or 'isdf-robust'
             (robust-fit ISDF exchange through the cross-term kernel). J is
-            the exact FFT Poisson solve in every engine.
+            the exact FFT Poisson solve in every engine. A range-separated
+            hybrid builds the full-range and the long-range exchange of the
+            engine (the ISDF engines from one shared fit), combined as
+            hyb K_full + (alpha - hyb) K_LR, each with its own probe-charge
+            Madelung shift.
         v_ext: optional (nao, nao) external one-body potential added to the
             Fock operator each cycle but not to the reported energy.
         timer: optional StageTimer; records the ISDF build stages and, per
-            iteration, 'J', 'K', 'XC' and 'eigh'.
+            iteration, 'cycle' and within it 'J', 'K', 'XC' and 'eigh'.
 
-    Smearing (``sigma``), Becke grids, range-separated hybrids, the other
-    DF engines and ``isdf_precision='dd'`` are not ported yet and raise
+    Smearing (``sigma``), Becke grids, the other DF engines and
+    ``isdf_precision='dd'`` are not ported yet and raise
     ``NotImplementedError``.
 
     Returns a dict with e_tot, mo_energy, mo_coeff, mo_occ, dm, converged,
-    niter (tensors on the system's device) and isdf, the factorization the
-    ISDF engines built (None otherwise).
+    niter (tensors on the system's device), isdf, the factorization the
+    ISDF engines built (None otherwise), and isdf_lr, the long-range one of
+    a range-separated hybrid (None otherwise).
     """
     if sigma:
         raise NotImplementedError("smearing")
@@ -187,13 +260,24 @@ def scf_kernel(
             raise NotImplementedError(f"df engine {df!r}")
         raise ValueError(f"unknown df engine {df!r}: use 'fftdf', 'isdf' "
                          "or 'isdf-robust'")
+    if isdf_precision is not None:
+        raise NotImplementedError(f"isdf precision {isdf_precision!r}: the "
+                                  "port solves in the working dtype (float64)")
     timer = timer or null_timer
     cell = system.cell
     xcspec = XCSpec(xc) if xc is not None else None
-    hyb = 1.0 if xcspec is None else xcspec.hyb
-    need_k = hyb > 0
-    is_gga = xcspec is not None and xcspec.family == "gga"
+    hyb, alpha, omega = rsh_coeffs(xcspec)
+    rsh = omega != 0.0
+    need_k = hyb > 0 or alpha > 0
     is_dft = xcspec is not None and xcspec.family != "hf"
+    # range separation (reference pbc/dft/rks.py:108-121): get_k returns
+    # the combined hyb K_full + (alpha - hyb) K_LR, the loop's scale is 1,
+    # and each part carries its own probe-charge Madelung constant
+    k_scale = 1.0 if rsh else hyb
+    mad_add = system.madelung
+    if rsh:
+        mad_add = hyb * system.madelung \
+            + (alpha - hyb) * coulomb.madelung_omega(cell, None, omega)
 
     aoR = system.aoR
     dtype, device = aoR.dtype, aoR.device
@@ -203,36 +287,30 @@ def scf_kernel(
     nocc = system.nelec // 2
 
     ao_grad = None
-    if is_gga:
+    if is_dft and xcspec.family in ("gga", "mgga"):
         ao_grad = ao_gradient_fft(aoR, mesh, system.Gv)
 
     internal_jk = get_jk is None
-    isdf = None
+    facs = ()
     if get_jk is None:
         coulG_k = coulG
         if need_k and exxdiv not in (None, "ewald"):
             coulG_k = torch.as_tensor(coulomb.get_coulG(cell, exxdiv=exxdiv),
                                       dtype=dtype, device=device)
-        if df in ("isdf", "isdf-robust") and need_k:
-            from pyscf_isdf_tpu_torch.df import isdf as isdf_mod
+        if need_k:
+            coulGs = [coulG_k]
+            if rsh:
+                coulGs.append(torch.as_tensor(
+                    coulomb.get_coulG(cell, exxdiv=None, omega=omega),
+                    dtype=dtype, device=device))
+            fns, facs = exchange_engines(system, df, coulGs, isdf_c, timer)
+            if rsh:
+                def get_k_fn(dmj):
+                    return hyb * fns[0](dmj) + (alpha - hyb) * fns[1](dmj)
+            else:
+                get_k_fn = fns[0]
 
-            robust = df == "isdf-robust"
-            isdf = isdf_mod.build_isdf(aoR, coulG_k, mesh, weight, c=isdf_c,
-                                       keep_v=robust, precision=isdf_precision,
-                                       timer=timer)
-
-            def get_k_fn(dmj):
-                if robust:
-                    return isdf_mod.get_k_robust(isdf, aoR, dmj, weight)
-                return isdf_mod.get_k(isdf, dmj)
-        else:
-            if isdf_precision is not None:
-                raise NotImplementedError(f"isdf precision {isdf_precision!r}")
-
-            def get_k_fn(dmj):
-                return fftdf.get_k(aoR, dmj, coulG_k, mesh, weight)
-
-        occ_k_capable = df == "fftdf"
+        occ_k_capable = df == "fftdf" and not rsh
 
         def get_jk(dm, with_k, C_w=None):
             dmj = dm.to(dtype)
@@ -273,61 +351,58 @@ def scf_kernel(
     C_w = None
     F_last = None
     for it in range(max_cycle):
-        if internal_jk:
-            vj, vk = get_jk(dm, need_k, C_w)
-        else:
-            vj, vk = get_jk(dm, need_k)
-        vj = torch.as_tensor(vj, device=device).to(torch.float64)
-        veff = vj.clone()
-        e_xc = 0.0
-        if is_dft:
-            with timer("XC"):
-                dmj = dm.to(dtype)
-                if is_gga:
-                    e_xc_t, vxc, _ = _vxc_gga(aoR, ao_grad, dmj, weight, xcspec)
-                else:
-                    e_xc_t, vxc, _ = _vxc_lda(aoR, dmj, weight, xcspec)
-                e_xc = float(e_xc_t)
-            veff += vxc.to(torch.float64)
-        e_k = 0.0
-        if need_k:
-            vk = torch.as_tensor(vk, device=device).to(torch.float64)
-            if exxdiv == "ewald":
-                vk = fftdf.apply_ewald_exxdiv(vk, dm, S, system.madelung)
-            veff -= 0.5 * hyb * vk
-            e_k = -0.25 * hyb * _trace(dm, vk)
+        with timer("cycle"):
+            if internal_jk:
+                vj, vk = get_jk(dm, need_k, C_w)
+            else:
+                vj, vk = get_jk(dm, need_k)
+            vj = torch.as_tensor(vj, device=device).to(torch.float64)
+            veff = vj.clone()
+            e_xc = 0.0
+            if is_dft:
+                with timer("XC"):
+                    e_xc_t, vxc, _ = _vxc(aoR, ao_grad, dm.to(dtype), weight, xcspec)
+                    e_xc = float(e_xc_t)
+                veff += vxc.to(torch.float64)
+            e_k = 0.0
+            if need_k:
+                vk = torch.as_tensor(vk, device=device).to(torch.float64)
+                if exxdiv == "ewald":
+                    vk = fftdf.apply_ewald_exxdiv(vk, dm, S, mad_add)
+                veff -= 0.5 * k_scale * vk
+                e_k = -0.25 * k_scale * _trace(dm, vk)
 
-        F = hcore + veff
-        if v_ext is not None:
-            F = F + v_ext
-        if level_shift > 0:
-            # shift virtual levels up: F += shift (S - S D/2 S)
-            F = F + level_shift * (S - S @ (0.5 * dm) @ S)
-        if damping > 0 and it > 0:
-            F = (1 - damping) * F + damping * F_last
-        F_last = F
-        # DIIS extrapolation on the Fock matrix
-        sds = S @ dm @ F - F @ dm @ S
-        err = X.T @ sds @ X
-        F = diis.update(F, err)
+            F = hcore + veff
+            if v_ext is not None:
+                F = F + v_ext
+            if level_shift > 0:
+                # shift virtual levels up: F += shift (S - S D/2 S)
+                F = F + level_shift * (S - S @ (0.5 * dm) @ S)
+            if damping > 0 and it > 0:
+                F = (1 - damping) * F + damping * F_last
+            F_last = F
+            # DIIS extrapolation on the Fock matrix
+            sds = S @ dm @ F - F @ dm @ S
+            err = X.T @ sds @ X
+            F = diis.update(F, err)
 
-        mo_e, mo_c = eig(F)
-        dm_new = make_rdm1(mo_c, nocc)
-        # integer occupations -> occupied-MO exchange next cycle
-        C_w = mo_c[:, :nocc] * 2.0 ** 0.5
+            mo_e, mo_c = eig(F)
+            dm_new = make_rdm1(mo_c, nocc)
+            # integer occupations -> occupied-MO exchange next cycle
+            C_w = mo_c[:, :nocc] * 2.0 ** 0.5
 
-        e_elec = _trace(dm, hcore) + 0.5 * _trace(dm, vj) + e_xc + e_k
-        e_tot = float(e_elec + system.e_nuc)
-        de = abs(e_tot - e_last)
-        err_norm = float(torch.linalg.norm(err)) / max(1, err.numel()) ** 0.5
-        if verbose:
-            print(f"cycle {it:3d}  E = {e_tot:.12f}  dE = {de:.2e}  |err| = {err_norm:.2e}")
-        if de < conv_tol and err_norm < conv_tol ** 0.5:
-            conv = True
+            e_elec = _trace(dm, hcore) + 0.5 * _trace(dm, vj) + e_xc + e_k
+            e_tot = float(e_elec + system.e_nuc)
+            de = abs(e_tot - e_last)
+            err_norm = float(torch.linalg.norm(err)) / max(1, err.numel()) ** 0.5
+            if verbose:
+                print(f"cycle {it:3d}  E = {e_tot:.12f}  dE = {de:.2e}  |err| = {err_norm:.2e}")
+            if de < conv_tol and err_norm < conv_tol ** 0.5:
+                conv = True
+                dm = dm_new
+                break
             dm = dm_new
-            break
-        dm = dm_new
-        e_last = e_tot
+            e_last = e_tot
 
     return {
         "e_tot": e_tot,
@@ -337,5 +412,6 @@ def scf_kernel(
         "dm": dm,
         "converged": conv,
         "niter": it + 1,
-        "isdf": isdf,
+        "isdf": facs[0] if facs else None,
+        "isdf_lr": facs[1] if len(facs) > 1 else None,
     }

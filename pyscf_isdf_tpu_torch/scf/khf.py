@@ -23,7 +23,9 @@ from pyscf_isdf_tpu_torch.ops.ao_eval import ao_gradient_fft_k, eval_ao_kpts
 from pyscf_isdf_tpu_torch.ops.ft_ao import overlap_and_kinetic
 from pyscf_isdf_tpu_torch.ops.xc import XCSpec
 from pyscf_isdf_tpu_torch.scf.diis import DIIS
+from pyscf_isdf_tpu_torch.scf.hf import rsh_coeffs
 from pyscf_isdf_tpu_torch.scf.occupations import exact_count_occ
+from pyscf_isdf_tpu_torch.utils.timing import null_timer
 
 
 @dataclass(frozen=True, eq=False)
@@ -67,8 +69,6 @@ def build_kscf_system(cell: Cell, kpts, device=None, ae: bool = False,
     if ae:
         raise NotImplementedError("ae=True (analytic all-electron k-point "
                                   "S/hcore)")
-    from pyscf_isdf_tpu_torch.utils.timing import null_timer
-
     device = resolve_device(device)
     timer = timer or null_timer
     kpts = np.reshape(np.asarray(kpts, dtype=np.float64), (-1, 3))
@@ -105,29 +105,99 @@ def build_kscf_system(cell: Cell, kpts, device=None, ae: bool = False,
     )
 
 
-def vxc_kpts(aoR_k, ao_grad_k, dm, weight, xcspec):
-    """k-averaged XC quadrature: (e_xc, vxc_k (nk, nao, nao) complex).
+def _vxc_k(aoR_k, ao_grad_k, dm, weight, xcspec):
+    """k-averaged XC quadrature: (e_xc as a device scalar, vxc_k (nk, nao,
+    nao) complex).
 
-    The density is the k-average rho = (1/nk) sum_k Re tr(D_k ao ao^*);
-    GGA rungs add the spectral AO gradients ``ao_grad_k`` (nk, 3, ng, nao).
+    The density is the k-average rho = (1/nk) sum_k Re tr(D_k ao ao^*),
+    clamped at 1e-30; GGA and meta-GGA rungs add the spectral AO gradients
+    ``ao_grad_k`` (nk, 3, ng, nao), meta-GGAs the kinetic-energy density
+    tau = (1/2nk) sum_k Re tr(D_k grad ao^* . grad ao) and its potential
+    term 1/2 w grad ao^H (vtau grad ao).
     """
     nk = aoR_k.shape[0]
     t = aoR_k @ dm                                           # (nk, ng, nao)
-    rho = (t * aoR_k.conj()).sum((0, 2)).real / nk
-    if xcspec.family == "gga":
-        # grad rho = (2/nk) Re sum_k conj(t) . grad(ao)
-        grho = 2.0 / nk * torch.einsum("kgj,kxgj->xg", t.conj(), ao_grad_k).real
-        exc, vrho, vsigma = xcspec.exc_vxc(rho, (grho * grho).sum(0))
-        e_xc = float(weight * torch.sum(rho * exc))
-        # V_k = w [conj(ao)^T (vrho/2 ao + 2 vsigma grad_rho.grad_ao) + h.c.]
-        aow = 0.5 * vrho[:, None] * aoR_k + 2.0 * torch.einsum(
-            "xg,kxgi->kgi", (grho * vsigma).to(aoR_k.dtype), ao_grad_k)
-        half = weight * (aoR_k.conj().transpose(1, 2) @ aow)
-        return e_xc, half + half.conj().transpose(1, 2)
-    exc, vrho, _ = xcspec.exc_vxc(rho)
-    e_xc = float(weight * torch.sum(rho * exc))
-    vxc = weight * ((aoR_k.conj().transpose(1, 2) * vrho) @ aoR_k)
-    return e_xc, vxc
+    rho = torch.clamp((t * aoR_k.conj()).sum((0, 2)).real / nk, min=1e-30)
+    if xcspec.family not in ("gga", "mgga"):
+        exc, vrho, _ = xcspec.exc_vxc(rho)
+        vxc = weight * ((aoR_k.conj().transpose(1, 2) * vrho) @ aoR_k)
+        return weight * torch.sum(rho * exc), vxc
+    # grad rho = (2/nk) Re sum_k conj(t) . grad(ao)
+    grho = 2.0 / nk * torch.einsum("kgj,kxgj->xg", t.conj(), ao_grad_k).real
+    sigma = torch.clamp((grho * grho).sum(0), min=1e-30)
+    vtau = None
+    if xcspec.family == "mgga":
+        tau = torch.clamp(0.5 / nk * ((ao_grad_k @ dm[:, None])
+                                      * ao_grad_k.conj()).sum((0, 1, 3)).real,
+                          min=1e-30)
+        exc, vrho, vsigma, vtau = xcspec.exc_vxc_mgga(rho, sigma, tau)
+    else:
+        exc, vrho, vsigma = xcspec.exc_vxc(rho, sigma)
+    # V_k = w [conj(ao)^T (vrho/2 ao + 2 vsigma grad_rho.grad_ao) + h.c.]
+    aow = 0.5 * vrho[:, None] * aoR_k + 2.0 * torch.einsum(
+        "xg,kxgi->kgi", (grho * vsigma).to(aoR_k.dtype), ao_grad_k)
+    half = weight * (aoR_k.conj().transpose(1, 2) @ aow)
+    vxc = half + half.conj().transpose(1, 2)
+    if vtau is not None:
+        nk, _, ng, nao = ao_grad_k.shape
+        g = ao_grad_k.reshape(nk, 3 * ng, nao)
+        gw = (ao_grad_k * vtau[:, None]).reshape(nk, 3 * ng, nao)
+        vxc = vxc + 0.5 * weight * (gw.conj().transpose(1, 2) @ g)
+    return weight * torch.sum(rho * exc), vxc
+
+
+def vxc_kpts(aoR_k, ao_grad_k, dm, weight, xcspec):
+    """k-averaged XC quadrature: (e_xc, vxc_k (nk, nao, nao) complex), the
+    energy as a Python float (see :func:`_vxc_k`)."""
+    e_xc, vxc = _vxc_k(aoR_k, ao_grad_k, dm, weight, xcspec)
+    return float(e_xc), vxc
+
+
+def bloch_ao_gradients(system: KSCFSystem) -> torch.Tensor:
+    """Spectral gradients of the Bloch AOs, (nk, 3, ng, nao)."""
+    f64 = dict(dtype=torch.float64, device=system.aoR_k.device)
+    coords = torch.as_tensor(system.cell.uniform_grid(), **f64)
+    Gv = torch.as_tensor(system.cell.get_Gv(), **f64)
+    kt = torch.as_tensor(system.kpts, **f64)
+    return torch.stack([ao_gradient_fft_k(system.aoR_k[k], system.mesh, Gv, kt[k],
+                                          coords)
+                        for k in range(len(system.kpts))])
+
+
+def exchange_engines_k(system: KSCFSystem, df, isdf_c, omega=None):
+    """Exchange functions ``dm_k -> K_k`` of one k-point engine: the
+    full-range one and, with ``omega``, the long-range one.
+
+    'isdf' builds the shared-xi factorization (one per kernel, each with
+    its own IP selection), 'isdf_q' the q-resolved one with robust-fit
+    exchange, 'fftdf' uses the exact pair-density FFT build on the
+    system's kernels (and, with ``omega``, on the long-range ones).
+    """
+    cell, aoR_k, kpts = system.cell, system.aoR_k, system.kpts
+    omegas = [None] if omega is None else [None, omega]
+    if df == "isdf_q":
+        from pyscf_isdf_tpu_torch.df import isdf_q as isdf_q_mod
+
+        facs = [isdf_q_mod.build_isdf_q(cell, aoR_k, kpts, c=isdf_c, keep_x=True,
+                                        omega=w or 0.0) for w in omegas]
+        return [lambda dm, f=f: isdf_q_mod.get_k_kpts_robust(f, dm, aoR_k,
+                                                             system.weight)
+                for f in facs]
+    if df == "isdf":
+        from pyscf_isdf_tpu_torch.df import isdf_k as isdf_k_mod
+
+        facs = [isdf_k_mod.build_isdf_k(cell, aoR_k, kpts, c=isdf_c, omega=w or 0.0)
+                for w in omegas]
+        return [lambda dm, f=f: isdf_k_mod.get_k_kpts(f, dm) for f in facs]
+    kernels = [system.coulG_pairs]
+    if omega is not None:
+        kernels.append(torch.as_tensor(
+            fftdf_k.make_k_kernels(cell, kpts, omega=omega)[0],
+            dtype=torch.float64, device=aoR_k.device))
+    kweight = system.weight / len(kpts)
+    return [lambda dm, cp=cp: fftdf_k.get_k_kpts(aoR_k, dm, cp, system.expmikr,
+                                                 system.mesh, kweight)
+            for cp in kernels]
 
 
 def _eig_all(F, X):
@@ -174,6 +244,7 @@ def kscf_kernel(
     hubbard=None,
     xc_grids: str = "uniform",
     device=None,
+    timer=None,
 ):
     """Run the k-point SCF to convergence on ``device`` (default: the GPU),
     where ``system`` must have been built. xc=None -> KRHF, else KRKS ('hf'
@@ -183,11 +254,17 @@ def kscf_kernel(
     exchange through :func:`pyscf_isdf_tpu_torch.df.isdf_k.get_k_kpts`;
     ``df='isdf_q'`` builds the q-resolved factorization and uses its
     robust-fit exchange (:mod:`pyscf_isdf_tpu_torch.df.isdf_q`). J stays on
-    the exact FFT path either way.
+    the exact FFT path either way. A range-separated hybrid builds the
+    engine's full-range and long-range exchange, combined as
+    hyb K_full + (alpha - hyb) K_LR, each with its own probe-charge
+    Madelung shift.
 
-    Smearing (``sigma``), DFT+U (``hubbard``), Becke grids, range-separated
-    hybrids, the gdf/aegdf engines and ``isdf_precision='dd'`` are not
-    ported yet and raise ``NotImplementedError``.
+    ``timer`` (a :class:`~pyscf_isdf_tpu_torch.utils.timing.StageTimer`)
+    records each iteration as 'cycle'.
+
+    Smearing (``sigma``), DFT+U (``hubbard``), Becke grids, the gdf/aegdf
+    engines and ``isdf_precision='dd'`` are not ported yet and raise
+    ``NotImplementedError``.
 
     Returns a dict with e_tot, mo_energy, mo_coeff (per-k tensor lists),
     mo_occ (per-k numpy arrays), dm (nk, nao, nao), converged, niter.
@@ -208,13 +285,19 @@ def kscf_kernel(
                          "or 'isdf_q'")
     device = resolve_device(device)
     _check_device(system, device)
+    timer = timer or null_timer
     cell = system.cell
     nk = len(system.kpts)
     xcspec = XCSpec(xc) if xc is not None else None
-    hyb = 1.0 if xcspec is None else xcspec.hyb
-    need_k = hyb > 0
-    is_gga = xcspec is not None and xcspec.family == "gga"
+    hyb, alpha, omega = rsh_coeffs(xcspec)
+    rsh = omega != 0.0
+    need_k = hyb > 0 or alpha > 0
     is_dft = xcspec is not None and xcspec.family != "hf"
+    k_scale = 1.0 if rsh else hyb
+    mad_add = system.madelung
+    if rsh:
+        mad_add = hyb * system.madelung \
+            + (alpha - hyb) * coulomb.madelung_omega(cell, system.kpts, omega)
 
     aoR_k = system.aoR_k
     mesh = system.mesh
@@ -222,44 +305,26 @@ def kscf_kernel(
     nocc_tot = system.nelec_tot // 2
 
     ao_grad_k = None
-    if is_gga:
-        f64 = dict(dtype=torch.float64, device=device)
-        coords = torch.as_tensor(cell.uniform_grid(), **f64)
-        Gv = torch.as_tensor(cell.get_Gv(), **f64)
-        kt = torch.as_tensor(system.kpts, **f64)
-        ao_grad_k = torch.stack([ao_gradient_fft_k(aoR_k[k], mesh, Gv, kt[k], coords)
-                                 for k in range(nk)])        # (nk, 3, ng, nao)
+    if is_dft and xcspec.family in ("gga", "mgga"):
+        ao_grad_k = bloch_ao_gradients(system)
 
     if exxdiv not in (None, "ewald"):
         raise NotImplementedError(f"exxdiv={exxdiv!r} with k-points")
     get_k_fn = None
-    if df == "isdf_q" and need_k:
-        from pyscf_isdf_tpu_torch.df import isdf_q as isdf_q_mod
-
-        isdfq = isdf_q_mod.build_isdf_q(cell, aoR_k, system.kpts, c=isdf_c,
-                                        keep_x=True)
-
-        def get_k_fn(dm):
-            return isdf_q_mod.get_k_kpts_robust(isdfq, dm, aoR_k, weight)
-    elif df == "isdf" and need_k:
-        from pyscf_isdf_tpu_torch.df import isdf_k as isdf_k_mod
-
-        isdfk = isdf_k_mod.build_isdf_k(cell, aoR_k, system.kpts, c=isdf_c)
-
-        def get_k_fn(dm):
-            return isdf_k_mod.get_k_kpts(isdfk, dm)
-    elif need_k:
-        kweight = weight / nk
-
-        def get_k_fn(dm):
-            return fftdf_k.get_k_kpts(aoR_k, dm, system.coulG_pairs,
-                                      system.expmikr, mesh, kweight)
+    if need_k:
+        fns = exchange_engines_k(system, df, isdf_c, omega if rsh else None)
+        if rsh:
+            def get_k_fn(dm):
+                return hyb * fns[0](dm) + (alpha - hyb) * fns[1](dm)
+        else:
+            get_k_fn = fns[0]
+    occ_k_capable = df == "fftdf" and not rsh
 
     def get_jk(dm, with_k, C_w_k=None):
         vj = fftdf_k.get_j_kpts(aoR_k, dm, system.coulG, mesh, weight)
         if not with_k:
             return vj, None
-        if C_w_k is not None and df == "fftdf":
+        if C_w_k is not None and occ_k_capable:
             # occupied-MO fast exchange (reference tagged-DM path,
             # fft_jk.py:235-259): nao*nocc FFTs per (k1,k2) block
             vk = fftdf_k.get_k_kpts_occ(aoR_k, aoR_k @ C_w_k,
@@ -290,51 +355,52 @@ def kscf_kernel(
     conv = False
     C_w_k = None
     for it in range(max_cycle):
-        vj, vk = get_jk(dm, need_k, C_w_k)
-        veff = vj.clone()
-        e_xc = 0.0
-        if is_dft:
-            e_xc, vxc = vxc_kpts(aoR_k, ao_grad_k, dm, weight, xcspec)
-            veff = veff + vxc
-        e_k = 0.0
-        if need_k:
-            if exxdiv == "ewald":
-                vk = vk + system.madelung * (S @ dm @ S)
-            veff = veff - 0.5 * hyb * vk
-            e_k = -0.25 * hyb * _trace(dm, vk) / nk
+        with timer("cycle"):
+            vj, vk = get_jk(dm, need_k, C_w_k)
+            veff = vj.clone()
+            e_xc = 0.0
+            if is_dft:
+                e_xc, vxc = vxc_kpts(aoR_k, ao_grad_k, dm, weight, xcspec)
+                veff = veff + vxc
+            e_k = 0.0
+            if need_k:
+                if exxdiv == "ewald":
+                    vk = vk + mad_add * (S @ dm @ S)
+                veff = veff - 0.5 * k_scale * vk
+                e_k = -0.25 * k_scale * _trace(dm, vk) / nk
 
-        F = hcore + veff
-        sds = S @ dm @ F - F @ dm @ S
-        err = torch.cat([(x.conj().T @ sds[k] @ x).reshape(-1)
-                         for k, x in enumerate(X)])
-        F = diis.update(F, err)
+            F = hcore + veff
+            sds = S @ dm @ F - F @ dm @ S
+            err = torch.cat([(x.conj().T @ sds[k] @ x).reshape(-1)
+                             for k, x in enumerate(X)])
+            F = diis.update(F, err)
 
-        mo_e, mo_c = _eig_all(F, X)
-        occs = occupations(mo_e)
-        dm_new = make_dm(mo_c, occs)
-        # occupied-MO exchange next cycle: only for a uniform integer fill
-        counts = [int(np.sum(o > 0)) for o in occs]
-        C_w_k = None
-        if len(set(counts)) == 1 and counts[0] > 0:
-            no = counts[0]
-            C_w_k = torch.stack([
-                c[:, :no] * torch.as_tensor(np.sqrt(o[:no]), dtype=c.dtype,
-                                            device=device)
-                for c, o in zip(mo_c, occs)])
+            mo_e, mo_c = _eig_all(F, X)
+            occs = occupations(mo_e)
+            dm_new = make_dm(mo_c, occs)
+            # occupied-MO exchange next cycle: only for a uniform integer fill
+            counts = [int(np.sum(o > 0)) for o in occs]
+            C_w_k = None
+            if len(set(counts)) == 1 and counts[0] > 0:
+                no = counts[0]
+                C_w_k = torch.stack([
+                    c[:, :no] * torch.as_tensor(np.sqrt(o[:no]), dtype=c.dtype,
+                                                device=device)
+                    for c, o in zip(mo_c, occs)])
 
-        e1 = _trace(dm, hcore) / nk
-        ecoul = 0.5 * _trace(dm, vj) / nk
-        e_tot = float(e1 + ecoul + e_xc + e_k + system.e_nuc)
-        de = abs(e_tot - e_last)
-        err_norm = float(torch.linalg.norm(err)) / max(1, err.numel()) ** 0.5
-        if verbose:
-            print(f"cycle {it:3d}  E = {e_tot:.12f}  dE = {de:.2e}  |err| = {err_norm:.2e}")
-        if de < conv_tol and err_norm < np.sqrt(conv_tol):
-            conv = True
+            e1 = _trace(dm, hcore) / nk
+            ecoul = 0.5 * _trace(dm, vj) / nk
+            e_tot = float(e1 + ecoul + e_xc + e_k + system.e_nuc)
+            de = abs(e_tot - e_last)
+            err_norm = float(torch.linalg.norm(err)) / max(1, err.numel()) ** 0.5
+            if verbose:
+                print(f"cycle {it:3d}  E = {e_tot:.12f}  dE = {de:.2e}  |err| = {err_norm:.2e}")
+            if de < conv_tol and err_norm < np.sqrt(conv_tol):
+                conv = True
+                dm = dm_new
+                break
             dm = dm_new
-            break
-        dm = dm_new
-        e_last = e_tot
+            e_last = e_tot
 
     return {
         "e_tot": e_tot,

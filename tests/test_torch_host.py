@@ -52,11 +52,18 @@ def test_hcore_and_coulomb_constants(systems):
     assert abs(port.madelung - ref.madelung) < TOL
 
 
-@pytest.mark.parametrize("exxdiv", [None, "ewald", "vcut_sph"])
-def test_coulG_exxdiv(exxdiv):
-    ref = ref_coulomb.get_coulG(ref_diamond(mesh=MESH), exxdiv=exxdiv)
-    out = coulomb.get_coulG(diamond_primitive(mesh=MESH), exxdiv=exxdiv)
+@pytest.mark.parametrize("exxdiv,omega", [(None, None), ("ewald", None),
+                                          ("vcut_sph", None), (None, 0.11),
+                                          (None, -0.11), ("ewald", 0.11)])
+def test_coulG_exxdiv(exxdiv, omega):
+    """Gamma kernels; with omega the long-range (> 0) and short-range (< 0)
+    ones, and the long-range Madelung constant."""
+    ref = ref_coulomb.get_coulG(ref_diamond(mesh=MESH), exxdiv=exxdiv, omega=omega)
+    out = coulomb.get_coulG(diamond_primitive(mesh=MESH), exxdiv=exxdiv, omega=omega)
     assert np.abs(out - ref).max() < TOL
+    if omega is not None:
+        assert abs(coulomb.madelung_omega(diamond_primitive(mesh=MESH), None, omega)
+                   - ref_coulomb.madelung_omega(ref_diamond(mesh=MESH), None, omega)) < TOL
 
 
 def test_ewald_madelung_dzvp_cell():
@@ -65,13 +72,14 @@ def test_ewald_madelung_dzvp_cell():
 
 
 K_MODULES = ("kpts_helper", "k2gamma", "convert", "scf.khf", "scf.occupations",
-             "df.fftdf_k", "df.isdf_k", "df.isdf_q", "df.isdf_sym")
+             "df.fftdf_k", "df.isdf_k", "df.isdf_q", "df.isdf_sym",
+             "scf.jit_diis", "scf.jit_driver", "ops.xc_mgga")
 
 
 def test_port_imports_no_jax():
-    """Importing every port module, the k-point ones named, leaves jax and
-    the JAX package out of sys.modules (a subprocess: this test process
-    has imported jax)."""
+    """Importing every port module, the k-point ones, the graph drivers and
+    the meta-GGAs named, leaves jax and the JAX package out of sys.modules
+    (a subprocess: this test process has imported jax)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import pyscf_isdf_tpu_torch as p\n"

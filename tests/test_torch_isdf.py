@@ -82,6 +82,26 @@ def test_robust_k_on_reference_factorization(factorization):
         assert np.abs(out.numpy() - ref).max() < 1e-10 * np.abs(ref).max()
 
 
+def test_build_isdf_multi(factorization):
+    """One IP selection and xi fit, full-range and long-range kernels: the
+    same points, W and Vxi as the reference (1e-10 relative; c=4 keeps the
+    Gram of the 12^3 cell's 36 AO pairs well conditioned)."""
+    from pyscf_isdf_tpu_torch.ops import coulomb
+
+    system = factorization[0]
+    coulGs = [np.asarray(system.coulG),
+              coulomb.get_coulG(_cell(build_cell), omega=0.11)]
+    refs = ref_isdf.build_isdf_multi(system.aoR, [jnp.asarray(g) for g in coulGs],
+                                     system.mesh, system.weight, c=4, keep_v=True)
+    outs = isdf.build_isdf_multi(torch.as_tensor(np.array(system.aoR)), coulGs,
+                                 system.mesh, system.weight, c=4, keep_v=True)
+    for out, ref in zip(outs, refs):
+        assert np.array_equal(out.ip_idx.numpy(), np.asarray(ref.ip_idx))
+        for a, b in ((out.W, ref.W), (out.Vxi, ref.Vxi)):
+            b = np.asarray(b)
+            assert np.abs(a.numpy() - b).max() < 1e-10 * np.abs(b).max()
+
+
 @pytest.mark.parametrize("method,tol", [("cholesky", 1e-9),
                                         ("cholesky-blocked", 1e-8)])
 def test_port_isdf_matches_port_fftdf(method, tol):

@@ -78,13 +78,23 @@ def test_host_setup_per_k(systems):
     assert np.abs(port.hcore.numpy() - ref.hcore).max() < 1e-12
 
 
-@pytest.mark.parametrize("exxdiv", [None, "ewald"])
-def test_coulomb_kernels(systems, exxdiv):
+@pytest.mark.parametrize("exxdiv,omega", [(None, None), ("ewald", None),
+                                          (None, 0.11), (None, -0.11)])
+def test_coulomb_kernels(systems, exxdiv, omega):
+    """Kernels at one k-point transfer; with omega the long-range (> 0)
+    and short-range (< 0) ones, the per-pair tables and the long-range
+    Madelung constant."""
     rcell, ref, cell, port, kpts = systems
     q = kpts[1] - kpts[0]
-    out = coulomb.get_coulG(cell, k=q, exxdiv=exxdiv, kpts=kpts)
+    out = coulomb.get_coulG(cell, k=q, exxdiv=exxdiv, kpts=kpts, omega=omega)
     assert np.abs(out - ref_coulomb.get_coulG(rcell, k=q, exxdiv=exxdiv,
-                                              kpts=kpts)).max() < 1e-12
+                                              kpts=kpts, omega=omega)).max() < 1e-12
+    if omega is not None:
+        cp = fftdf_k.make_k_kernels(cell, kpts, omega=omega)[0]
+        cp0 = ref_fftdf_k.make_k_kernels(rcell, kpts, omega=omega)[0]
+        assert np.abs(cp - cp0).max() < 1e-12
+        assert abs(coulomb.madelung_omega(cell, kpts, omega)
+                   - ref_coulomb.madelung_omega(rcell, kpts, omega)) < 1e-12
     assert abs(coulomb.madelung(cell, kpts) - ref_coulomb.madelung(rcell, kpts)) < 1e-12
     assert np.abs(port.coulG_pairs.numpy() - ref.coulG_pairs).max() < 1e-12
     assert np.abs(port.expmikr.numpy() - ref.expmikr).max() < 1e-12
@@ -124,7 +134,7 @@ def test_fftdf_k_jk(systems):
 
 
 @pytest.mark.parametrize("xc,df", [("hf", "fftdf"), ("pbe0", "isdf_q"),
-                                   ("lda,vwn", "isdf")])
+                                   ("lda,vwn", "isdf"), ("hse06", "isdf_q")])
 def test_kscf_energy(systems, request, xc, df):
     """The reference spells KRHF xc=None: its kscf_kernel raises for
     xc='hf' (ROADMAP queue 3); the port takes either."""
@@ -177,7 +187,7 @@ def test_ragged_orthogonalizers(systems):
 def test_unported_options_raise(systems):
     _, _, cell, port, kpts = systems
     for kw in (dict(sigma=0.01), dict(isdf_precision="dd", df="isdf_q"),
-               dict(xc="hse06"), dict(exxdiv="vcut_sph"), dict(df="gdf")):
+               dict(xc_grids="becke"), dict(exxdiv="vcut_sph"), dict(df="gdf")):
         with pytest.raises(NotImplementedError):
             kscf_kernel(port, device="cpu", **{"xc": "pbe0", **kw})
     with pytest.raises(NotImplementedError):

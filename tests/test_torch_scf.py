@@ -35,25 +35,38 @@ def systems():
             build_scf_system(_cell(build_cell), device="cpu"))
 
 
+@pytest.fixture(scope="module")
+def ref_scf_run(systems):
+    """The reference's SCF per (xc, df), run once for the module."""
+    runs = {}
+
+    def run(xc, df):
+        if (xc, df) not in runs:
+            runs[xc, df] = ref_scf(systems[0], xc=xc, df=df, conv_tol=1e-10)
+        return runs[xc, df]
+    return run
+
+
 @pytest.mark.parametrize("xc,df", [(None, "isdf"), ("pbe0", "isdf-robust"),
-                                   ("lda,vwn", "fftdf"), ("pbe0", "fftdf")])
-def test_scf_energy(systems, xc, df):
+                                   ("lda,vwn", "fftdf"), ("pbe0", "fftdf"),
+                                   ("hse06", "isdf-robust"), ("scan", "fftdf")])
+def test_scf_energy(systems, ref_scf_run, xc, df):
     ref_sys, port_sys = systems
-    ref = ref_scf(ref_sys, xc=xc, df=df, conv_tol=1e-10)
+    ref = ref_scf_run(xc, df)
     out = scf_kernel(port_sys, xc=xc, df=df, conv_tol=1e-10)
     assert out["converged"] and ref["converged"]
     assert out["niter"] > 2
     assert abs(out["e_tot"] - ref["e_tot"]) < TOL
 
 
-def test_scf_on_reference_system(systems):
+def test_scf_on_reference_system(systems, ref_scf_run):
     """The reference's system carried across by convert.system_from_numpy."""
     ref_sys, _ = systems
     port_sys = system_from_numpy(
         _cell(build_cell), ref_sys.S, ref_sys.hcore, ref_sys.X,
         np.asarray(ref_sys.aoR), ref_sys.coulG, ref_sys.madelung,
         ref_sys.e_nuc, device="cpu")
-    ref = ref_scf(ref_sys, xc="pbe0", df="isdf-robust", conv_tol=1e-10)
+    ref = ref_scf_run("pbe0", "isdf-robust")
     out = scf_kernel(port_sys, xc="pbe0", df="isdf-robust", conv_tol=1e-10)
     assert abs(out["e_tot"] - ref["e_tot"]) < TOL
 
@@ -63,6 +76,6 @@ def test_unported_options_raise(systems):
     with pytest.raises(NotImplementedError):
         scf_kernel(port_sys, xc="pbe0", sigma=0.01)
     with pytest.raises(NotImplementedError):
-        scf_kernel(port_sys, xc="hse06")
+        scf_kernel(port_sys, xc="hse06", xc_grids="becke")
     with pytest.raises(NotImplementedError):
         scf_kernel(port_sys, xc="pbe0", df="isdf", isdf_precision="dd")
