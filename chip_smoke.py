@@ -60,7 +60,25 @@ run from the root of a checkout. Phases, each of which fails the script:
      against CPU on small cells: the Gamma host loop for b3lyp, pbesol,
      hse06 (isdf-robust) and scan, the Gamma graph driver for scan and
      pbe0/isdf (equal iteration counts), the k host loop for hse06/isdf_q
-     (1e-8 Ha).
+     (1e-8 Ha);
+  9. the open-shell drivers, smearing and the CVT selection: (a)
+     uhf_kernel(xc='pbe0', nelec=(108, 108), conv_tol=1e-8) on phase 5's
+     system with FFT J and phase 5's robust-fit K (K2) per spin, against
+     phase 5's RKS energy (1e-7 Ha), <S^2> < 1e-8, K2 twice an iteration;
+     (b) CVT points at c=16 from phase 5's density (selection seconds
+     beside the greedy ones), their |tr(D(K_fftdf - K_robust))| at phase
+     5's density (< 1e-3 Ha), robust_k_error of phase 5's factorization
+     against phase 5's trace deficit (1e-6 relative), and the triplet
+     uhf_kernel(xc='pbe0', nelec=(109, 107)) on the CVT factorization
+     (converged in 100 iterations, <S^2> >= 2 - 1e-8, 0 < E_T - E(9a) <
+     0.5 Ha, K2 twice an iteration); (c) on phase 7's k-system,
+     kuhf_kernel(xc='lda') against phase 7's energy, KUKS against KRKS
+     PBE0/isdf c=10 (1e-8 Ha), and a Fermi-smeared KRKS LDA (sigma 0.01
+     Ha, electron count to 1e-10); (d) card against CPU on small cells
+     (1e-8 Ha, equal iteration counts): UHF/UKS HF, PBE0/isdf, SCAN,
+     HSE06/isdf, KUKS PBE/isdf, smeared RKS and KRKS (Fermi-Dirac and
+     Gaussian), and the CVT (centroids 1e-12 Bohr, indices equal but at
+     ties) and atomic selections from the same draw.
 
 It prints the kernels' JSON summary and, as its last line,
 {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -357,7 +375,9 @@ def phase_main(torch):
         vk_fft = fftdf.get_k(system.aoR, dm, system.coulG, system.mesh,
                              system.weight, chunk=8)
     vk_rob = isdf_mod.get_k_robust(res["isdf"], system.aoR, dm, system.weight)
-    deficit = abs(float(torch.einsum("ij,ji->", dm, vk_fft - vk_rob)))
+    tr_fft = float(torch.einsum("ij,ji->", dm, vk_fft))
+    signed = tr_fft - float(torch.einsum("ij,ji->", dm, vk_rob))
+    deficit = abs(signed)
 
     s = timer.seconds
     log(f"main path: diamond 3x3x3 gth-szv natm={cell.natm} nao={cell.nao} "
@@ -378,7 +398,8 @@ def phase_main(torch):
     check(math.isfinite(res["e_tot"]), "main-path energy is not finite")
     check(res["converged"], "main-path SCF did not converge")
     check(deficit < 1e-3, f"robust-K trace deficit {deficit:.3e} Ha >= 1e-3")
-    return launches, res["isdf"].n_ip
+    return dict(launches=launches, n_ip=res["isdf"].n_ip, system=system, res=res,
+                tr_fft=tr_fft, deficit=signed, select_s=sum(s["isdf_select"]))
 
 
 def phase_small_k(torch):
@@ -664,6 +685,15 @@ def phase_graph_k(torch, ksys, e_cell):
     return out
 
 
+def compare_devices(label, e, n=None):
+    """Card against CPU: energies to 1e-8 Ha and, given, equal counts."""
+    log(f"{label}: energy card {e['cuda']:.12f}, cpu {e['cpu']:.12f}, |diff| "
+        f"{abs(e['cuda'] - e['cpu']):.3e} (bar 1e-8)"
+        + (f", iterations {n['cuda']} / {n['cpu']}" if n else ""))
+    check(abs(e["cuda"] - e["cpu"]) < 1e-8, f"{label}: card != CPU")
+    check(n is None or n["cuda"] == n["cpu"], f"{label}: iteration counts differ")
+
+
 def phase_small_rsh(torch):
     """8d: the new functionals and the graph driver, card against CPU."""
     from pyscf_isdf_tpu_torch import build_cell, lattice
@@ -679,13 +709,6 @@ def phase_small_rsh(torch):
                       "gth-szv", pseudo="gth-pade", mesh=(12, 12, 12), unit="Angstrom")
     systems = {dev: build_scf_system(cell, device=dev) for dev in ("cuda", "cpu")}
 
-    def compare(label, e, n=None):
-        log(f"8d {label}: e_tot card {e['cuda']:.12f}, cpu {e['cpu']:.12f}, |diff| "
-            f"{abs(e['cuda'] - e['cpu']):.3e} (bar 1e-8)"
-            + (f", iterations {n['cuda']} / {n['cpu']}" if n else ""))
-        check(abs(e["cuda"] - e["cpu"]) < 1e-8, f"8d {label}: card != CPU")
-        check(n is None or n["cuda"] == n["cpu"], f"8d {label}: iteration counts differ")
-
     for xc, df in (("b3lyp", "fftdf"), ("pbesol", "fftdf"), ("hse06", "isdf-robust"),
                    ("scan", "fftdf")):
         e = {}
@@ -693,13 +716,13 @@ def phase_small_rsh(torch):
             res = scf_kernel(system, xc=xc, df=df, conv_tol=1e-10)
             check(res["converged"], f"8d {xc}/{df} on {dev} did not converge")
             e[dev] = res["e_tot"]
-        compare(f"host loop {xc}/{df}", e)
+        compare_devices(f"8d host loop {xc}/{df}", e)
     for xc, df in (("scan", "isdf"), ("pbe0", "isdf")):
         e, n = {}, {}
         for dev, system in systems.items():
             e[dev], _, n[dev], conv = run_scf_jit_diis(system, xc=xc, df=df)
             check(conv, f"8d graph driver {xc}/{df} on {dev} did not converge")
-        compare(f"graph driver {xc}/{df}", e, n)
+        compare_devices(f"8d graph driver {xc}/{df}", e, n)
     kcell = diamond_primitive(mesh=(9, 9, 9))
     kpts = lattice.make_kpts(kcell.a, [1, 1, 2], with_gamma_point=False)
     e = {}
@@ -708,7 +731,252 @@ def phase_small_rsh(torch):
                           df="isdf_q", isdf_c=8, conv_tol=1e-10, device=dev)
         check(res["converged"], f"8d k hse06/isdf_q on {dev} did not converge")
         e[dev] = res["e_tot"]
-    compare("k host loop hse06/isdf_q (9^3, 1x1x2 shifted)", e)
+    compare_devices("8d k host loop hse06/isdf_q (9^3, 1x1x2 shifted)", e)
+
+
+def robust_hook(system, fac, timer):
+    """uhf_kernel's get_jk on a built factorization: J by the FFT Poisson
+    solve of the total density, the robust-fit K (K2) of each spin."""
+    from pyscf_isdf_tpu_torch.df import fftdf, isdf as isdf_mod
+
+    aoR, w = system.aoR, system.weight
+
+    def get_jk(dm_spin, with_k):
+        with timer("J"):
+            vj = fftdf.get_j(aoR, dm_spin[0] + dm_spin[1], system.coulG, system.mesh, w)
+        if not with_k:
+            return vj, None
+        with timer("K"):
+            return vj, tuple(isdf_mod.get_k_robust(fac, aoR, d, w) for d in dm_spin)
+    return get_jk
+
+
+def iteration_line(label, res, timer, launches):
+    """Iterations, median per-iteration stage ms and launch counts."""
+    s = timer.seconds
+    log(f"{label}: {res['niter']} iterations (converged={res['converged']}), median ms "
+        "an iteration: " + ", ".join(
+            f"{k} {1e3 * statistics.median(s[k]):.2f}" for k in ("cycle", "J", "K", "XC", "eigh")
+            if k in s) + f"; launches {launches}")
+
+
+def phase_open_shell(torch, main):
+    """9a: closed-shell UKS at the main width through phase 5's robust-fit
+    factorization; 9b: CVT points, the residual certificate and the
+    lowest-triplet Delta-SCF."""
+    from pyscf_isdf_tpu_torch.df import fftdf, isdf as isdf_mod
+    from pyscf_isdf_tpu_torch.ops.cuda_ao import collocate
+    from pyscf_isdf_tpu_torch.ops.cuda_robust_k import robust_k_cross
+    from pyscf_isdf_tpu_torch.scf import uhf_kernel
+    from pyscf_isdf_tpu_torch.utils.timing import StageTimer
+
+    system, rks = main["system"], main["res"]
+    cell, aoR, w, dm = system.cell, system.aoR, system.weight, rks["dm"]
+    nocc = cell.nelectron // 2
+    timer = StageTimer("cuda")
+    collocate.launches = 0
+    robust_k_cross.launches = 0
+    t0 = time.perf_counter()
+    uks = uhf_kernel(system, xc="pbe0", nelec=(nocc, nocc), conv_tol=1e-8,
+                     get_jk=robust_hook(system, rks["isdf"], timer), timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"ao_collocate": collocate.launches, "robust_k_cross": robust_k_cross.launches}
+    diff = abs(uks["e_tot"] - rks["e_tot"])
+    log(f"9a UKS PBE0 robust ISDF c=16, nelec ({nocc}, {nocc}): e_tot {uks['e_tot']:.10f}, "
+        f"phase 5 RKS {rks['e_tot']:.10f}, |diff| {diff:.3e} (bar 1e-7), <S^2> "
+        f"{uks['s_squared']:.3e} (bar 1e-8), {wall:.2f} s")
+    iteration_line("9a", uks, timer, launches)
+    check(uks["converged"], "9a: UKS did not converge")
+    check(diff < 1e-7, "9a: closed-shell UKS != phase 5's RKS")
+    check(abs(uks["s_squared"]) < 1e-8, "9a: <S^2> of the closed shell is not 0")
+    check(launches["robust_k_cross"] == 2 * uks["niter"],
+          f"9a: K2 launched {launches['robust_k_cross']} times in {uks['niter']} iterations")
+    out = dict(k2=launches["robust_k_cross"],
+               uks=dict(launches=launches["robust_k_cross"], niter=uks["niter"]))
+    e_uks = uks["e_tot"]
+    del uks
+
+    tb = StageTimer("cuda")
+    coords = torch.as_tensor(cell.uniform_grid(), device="cuda")
+    rho = fftdf.get_rho(aoR, dm)
+    fac = isdf_mod.build_isdf(aoR, system.coulG, system.mesh, w, c=16, method="cvt",
+                              coords=coords, rho=rho, keep_v=True, timer=tb)
+    robust_k_cross.launches = 0
+    vk = isdf_mod.get_k_robust(fac, aoR, dm, w)
+    k2_check = robust_k_cross.launches
+    out["k2"] += k2_check
+    deficit = abs(main["tr_fft"] - float(torch.einsum("ij,ji->", dm, vk)))
+    del vk, coords, rho
+    log(f"9b CVT selection (n_ip {fac.n_ip}, 30 Lloyd steps, K1 {collocate.launches} and "
+        f"K2 {k2_check} launches with the trace check): select "
+        f"{sum(tb.seconds['isdf_select']):.3f} s (phase 5 greedy {main['select_s']:.3f} s), "
+        f"xi {sum(tb.seconds['isdf_xi']):.3f} s, W and Vxi {sum(tb.seconds['isdf_w_vxi']):.3f} s; "
+        f"|tr(D(K_fftdf - K_robust))| at phase 5's density {deficit:.3e} Ha "
+        f"(greedy {abs(main['deficit']):.3e}, bar 1e-3)")
+    check(fac.n_ip == 16 * cell.nao, f"9b: CVT n_ip={fac.n_ip}")
+    check(deficit < 1e-3, f"9b: CVT robust-K trace deficit {deficit:.3e} Ha >= 1e-3")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    C_w = rks["mo_coeff"][:, :nocc] * 2.0 ** 0.5
+    cert = isdf_mod.robust_k_error(rks["isdf"], aoR, C_w, system.coulG, system.mesh, w)
+    secs = time.perf_counter() - t0
+    rel = abs(cert - main["deficit"]) / abs(main["deficit"])
+    log(f"9b robust_k_error of phase 5's greedy factorization: {cert:.9e} Ha ({secs:.3f} s); "
+        f"phase 5's tr(D(K_fftdf - K_robust)) {main['deficit']:.9e} Ha; relative "
+        f"difference {rel:.3e} (bar 1e-6)")
+    check(rel < 1e-6, "9b: the residual certificate != the FFTDF trace deficit")
+
+    timer = StageTimer("cuda")
+    collocate.launches = 0
+    robust_k_cross.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trip = uhf_kernel(system, xc="pbe0", nelec=(nocc + 1, nocc - 1), conv_tol=1e-8,
+                      max_cycle=100, get_jk=robust_hook(system, fac, timer), timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"ao_collocate": collocate.launches, "robust_k_cross": robust_k_cross.launches}
+    gap = trip["e_tot"] - e_uks
+    log(f"9b triplet UKS PBE0 on the CVT factorization, nelec ({nocc + 1}, {nocc - 1}): "
+        f"e_tot {trip['e_tot']:.10f}, E_triplet - E(9a) {gap:.6f} Ha (bar (0, 0.5)), "
+        f"<S^2> {trip['s_squared']:.9f} (bar >= 2 - 1e-8), {wall:.2f} s, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    iteration_line("9b", trip, timer, launches)
+    check(trip["converged"], "9b: the triplet did not converge in 100 iterations")
+    check(trip["s_squared"] >= 2.0 - 1e-8, "9b: <S^2> of the triplet is below 2")
+    check(0.0 < gap < 0.5, f"9b: triplet gap {gap:.4f} Ha outside (0, 0.5)")
+    check(launches["robust_k_cross"] == 2 * trip["niter"],
+          f"9b: K2 launched {launches['robust_k_cross']} times in {trip['niter']} iterations")
+    out["k2"] += launches["robust_k_cross"]
+    out["triplet"] = dict(launches=launches["robust_k_cross"], niter=trip["niter"])
+    del trip, fac
+    return out
+
+
+def phase_spin_k(torch, ksys, e_cell):
+    """9c: spin and smearing on phase 7's k-system (plain torch: neither
+    kernel runs; the counts are printed to show it)."""
+    from pyscf_isdf_tpu_torch.ops.cuda_ao import collocate
+    from pyscf_isdf_tpu_torch.ops.cuda_robust_k import robust_k_cross
+    from pyscf_isdf_tpu_torch.scf import kscf_kernel, kuhf_kernel
+
+    collocate.launches = 0
+    robust_k_cross.launches = 0
+    t0 = time.perf_counter()
+    res = kuhf_kernel(ksys, xc="lda", conv_tol=1e-10, device="cuda")
+    diff = abs(res["e_tot"] - e_cell)
+    log(f"9c KUKS LDA (nk={len(ksys.kpts)}): E/cell {res['e_tot']:.10f} ({res['niter']} "
+        f"iterations), phase 7 {e_cell:.10f}, |diff| {diff:.3e} (bar 1e-8), "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(res["converged"] and diff < 1e-8, "9c: KUKS LDA != phase 7's KRKS")
+    t0 = time.perf_counter()
+    res = kuhf_kernel(ksys, xc="pbe0", df="isdf", isdf_c=10, device="cuda")
+    t1 = time.perf_counter()
+    ref = kscf_kernel(ksys, xc="pbe0", df="isdf", isdf_c=10, device="cuda")
+    diff = abs(res["e_tot"] - ref["e_tot"])
+    log(f"9c KUKS PBE0/isdf c=10: E/cell {res['e_tot']:.10f} ({res['niter']} iterations, "
+        f"{t1 - t0:.2f} s); KRKS {ref['e_tot']:.10f} ({ref['niter']} iterations, "
+        f"{time.perf_counter() - t1:.2f} s); |diff| {diff:.3e} (bar 1e-8)")
+    check(res["converged"] and ref["converged"] and diff < 1e-8, "9c: KUKS PBE0 != KRKS PBE0")
+    t0 = time.perf_counter()
+    res = kscf_kernel(ksys, xc="lda", sigma=0.01, smearing_method="fermi", device="cuda")
+    n = float(sum(o.sum() for o in res["mo_occ"]))
+    log(f"9c smeared KRKS LDA (Fermi-Dirac, sigma 0.01 Ha): e_tot {res['e_tot']:.10f}, "
+        f"e_free {res['e_free']:.10f}, mu {res['mu']:.10f}, electrons {n:.12f} of "
+        f"{ksys.nelec_tot} ({res['niter']} iterations, {time.perf_counter() - t0:.2f} s)")
+    check(res["converged"], "9c: the smeared SCF did not converge")
+    check(abs(n - ksys.nelec_tot) < 1e-10, "9c: smeared occupations miss the electron count")
+    log(f"9c launches: K1 {collocate.launches}, K2 {robust_k_cross.launches}")
+
+
+def phase_small_spin(torch):
+    """9d: open-shell, smeared and CVT/atomic runs on small cells, card
+    against CPU. Returns K1's launches (the card's system build)."""
+    from pyscf_isdf_tpu_torch import build_cell, lattice
+    from pyscf_isdf_tpu_torch.df import fftdf
+    from pyscf_isdf_tpu_torch.models import diamond_primitive
+    from pyscf_isdf_tpu_torch.ops import interp_points
+    from pyscf_isdf_tpu_torch.ops.cuda_ao import collocate
+    from pyscf_isdf_tpu_torch.scf import (
+        build_kscf_system, build_scf_system, kscf_kernel, kuhf_kernel, scf_kernel,
+        uhf_kernel,
+    )
+
+    t0 = time.perf_counter()
+    cell = build_cell([[0.0, 1.7834, 1.7834], [1.7834, 0.0, 1.7834],
+                       [1.7834, 1.7834, 0.0]],
+                      [["C", (0.0, 0.0, 0.0)], ["C", (0.93, 0.87, 0.90)]],
+                      "gth-szv", pseudo="gth-pade", mesh=(10, 10, 10), unit="Angstrom")
+    collocate.launches = 0
+    systems = {dev: build_scf_system(cell, device=dev) for dev in ("cuda", "cpu")}
+    k1 = collocate.launches
+    check(k1 > 0, "9d: K1 was not launched by the card's system build")
+    for xc, df in ((None, "fftdf"), ("pbe0", "isdf"), ("scan", "fftdf"), ("hse06", "isdf")):
+        e, n = {}, {}
+        for dev, system in systems.items():
+            res = uhf_kernel(system, xc=xc, df=df, nelec=(6, 2), conv_tol=1e-10)
+            check(res["converged"], f"9d UHF {xc}/{df} on {dev} did not converge")
+            e[dev], n[dev] = res["e_tot"], res["niter"]
+        compare_devices(f"9d UHF/UKS {xc}/{df} nelec (6, 2)", e, n)
+    for method in ("fermi", "gauss"):
+        e, n = {}, {}
+        for dev, system in systems.items():
+            res = scf_kernel(system, xc="lda,vwn", sigma=0.05, smearing_method=method,
+                             conv_tol=1e-10)
+            check(res["converged"], f"9d smeared {method} on {dev} did not converge")
+            e[dev], n[dev] = res["e_free"], res["niter"]
+        compare_devices(f"9d smeared RKS LDA {method} sigma 0.05 (e_free)", e, n)
+
+    kcell = diamond_primitive(mesh=(9, 9, 9))
+    kpts = lattice.make_kpts(kcell.a, [1, 1, 2], with_gamma_point=False)
+    ksystems = {dev: build_kscf_system(kcell, kpts, device=dev) for dev in ("cuda", "cpu")}
+    e, n = {}, {}
+    for dev, ks in ksystems.items():
+        res = kuhf_kernel(ks, xc="pbe", df="isdf", nelec=(5, 3), conv_tol=1e-10, device=dev)
+        check(res["converged"], f"9d KUKS pbe/isdf on {dev} did not converge")
+        e[dev], n[dev] = res["e_tot"], res["niter"]
+    compare_devices("9d KUKS PBE/isdf nelec (5, 3) (9^3, 1x1x2 shifted)", e, n)
+    for method in ("fermi", "gauss"):
+        e, n = {}, {}
+        for dev, ks in ksystems.items():
+            res = kscf_kernel(ks, xc="lda,vwn", sigma=0.05, smearing_method=method,
+                              conv_tol=1e-10, device=dev)
+            check(res["converged"], f"9d smeared k {method} on {dev} did not converge")
+            e[dev], n[dev] = res["e_free"], res["niter"]
+        compare_devices(f"9d smeared KRKS LDA {method} sigma 0.05 (e_free)", e, n)
+
+    # CVT and atomic selections: the same indices from the same initial draw
+    sys_cpu = systems["cpu"]
+    dm = scf_kernel(sys_cpu, xc="lda,vwn", conv_tol=1e-8)["dm"]
+    rho = fftdf.get_rho(sys_cpu.aoR, dm)
+    n_ip = 8 * cell.nao
+    init = torch.multinomial(rho / rho.sum(), n_ip, replacement=False,
+                             generator=torch.Generator().manual_seed(0))
+    grid = torch.as_tensor(cell.uniform_grid())
+    pts, cen = {}, {}
+    for dev in ("cuda", "cpu"):
+        c = interp_points.cvt_centroids(grid.to(dev), rho.to(dev), n_ip, init_idx=init.to(dev))
+        pts[dev] = interp_points.nearest_points(grid.to(dev), c).cpu()
+        cen[dev] = c.cpu()
+    dc = float((cen["cuda"] - cen["cpu"]).abs().max())
+    d2 = interp_points._sq_dist(grid, cen["cuda"])
+    cols = torch.arange(n_ip)
+    a, b = d2[pts["cuda"], cols], d2[pts["cpu"], cols]
+    ties = ((a - b).abs() <= 1e-12 * a).numpy() & (pts["cuda"] != pts["cpu"]).numpy()
+    same = bool(((pts["cuda"] == pts["cpu"]).numpy() | ties).all())
+    log(f"9d CVT (n_ip {n_ip}, 30 steps) card against CPU from one draw: max |centroid "
+        f"difference| {dc:.3e} Bohr (bar 1e-12), indices differing {int((pts['cuda'] != pts['cpu']).sum())} "
+        f"of {n_ip}, of them at ties (1e-12 relative) {int(ties.sum())}")
+    check(dc < 1e-12 and same, "9d: CVT points differ between card and CPU")
+    idx = {dev: interp_points.atomic_points(systems[dev].aoR, cell.uniform_grid(),
+                                            cell.coords, n_ip // cell.natm).cpu()
+           for dev in ("cuda", "cpu")}
+    log(f"9d atomic points ({len(idx['cpu'])}): card == CPU {torch.equal(idx['cuda'], idx['cpu'])}")
+    check(torch.equal(idx["cuda"], idx["cpu"]), "9d: atomic points differ between card and CPU")
+    log(f"9d: {time.perf_counter() - t0:.1f} s, K1 launches {k1}")
+    return k1
 
 
 def main():
@@ -756,7 +1024,8 @@ def main():
         lambda: diamond_supercell((3, 3, 3), mesh=(48, 48, 48), basis="gth-dzvp"))
     k2 = phase_k2(torch, 110592, 216, 16 * 216)
     phase_small_scf(torch)
-    launches, n_ip = phase_main(torch)
+    main_path = phase_main(torch)
+    launches, n_ip = main_path["launches"], main_path["n_ip"]
     check(n_ip == 16 * 216, f"main path n_ip={n_ip}, K2 was timed at 3456")
     torch.cuda.empty_cache()
     phase_small_k(torch)
@@ -764,10 +1033,18 @@ def main():
     t8 = time.perf_counter()
     rsh = phase_rsh_main(torch)
     rsh["graph_k"] = phase_graph_k(torch, ksys, e_cell)
-    del ksys
     torch.cuda.empty_cache()
     phase_small_rsh(torch)
     log(f"phase 8: {time.perf_counter() - t8:.1f} s")
+    t9 = time.perf_counter()
+    spin = phase_open_shell(torch, main_path)
+    del main_path
+    torch.cuda.empty_cache()
+    phase_spin_k(torch, ksys, e_cell)
+    del ksys
+    torch.cuda.empty_cache()
+    spin["k1_small"] = phase_small_spin(torch)
+    log(f"phase 9: {time.perf_counter() - t9:.1f} s")
 
     kernels = [
         dict(name="ao_collocate", route="cuda",
@@ -777,7 +1054,8 @@ def main():
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None,
              certified=dict(launches=cert["k1_launches"]),
-             hse06=dict(launches=rsh["launches"]["ao_collocate"])),
+             hse06=dict(launches=rsh["launches"]["ao_collocate"]),
+             open_shell=dict(launches=spin["k1_small"])),
         dict(name="robust_k_cross", route="cuda",
              source="pyscf_isdf_tpu_torch/csrc/robust_k.cu",
              replaces="pyscf_isdf_tpu/ops/pallas_robust_k.py:41",
@@ -790,7 +1068,9 @@ def main():
                             bound_by=cert["bound_by"],
                             library_ms=cert["library_ms"]),
              hse06=dict(launches=rsh["launches"]["robust_k_cross"], niter=rsh["niter"],
-                        shape=rsh["shape"])),
+                        shape=rsh["shape"]),
+             open_shell=dict(launches=spin["k2"], uks=spin["uks"],
+                             triplet=spin["triplet"])),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

@@ -14,8 +14,8 @@ with the Coulomb-kernel matrix W built once per geometry from batched FFTs
 of the interpolation vectors (Lu-Ying ISDF; Hu-Lin-Yang arXiv:1707.09141).
 
 Build steps:
-  1. IP selection: pivoted Cholesky on (aoR aoR^T)^{o2}
-     (ops/interp_points.py).
+  1. IP selection: pivoted Cholesky on (aoR aoR^T)^{o2}, per atom or
+     not, or density-weighted K-means (ops/interp_points.py).
   2. Interpolation vectors: xi = C2 C1^{-1} with C1 = (aoRg aoRg^T)^{o2},
      C2 = (aoR aoRg^T)^{o2}  (Cholesky solve of the n_IP x n_IP Gram).
   3. W_PQ = w * sum_g xi_P(g) ifft(coulG * fft(xi_Q))(g), w = vol/ngrids,
@@ -30,7 +30,8 @@ import torch
 from pyscf_isdf_tpu_torch.df.fftdf import _complex, fft3, ifft3
 from pyscf_isdf_tpu_torch.ops.cuda_robust_k import robust_k_cross
 from pyscf_isdf_tpu_torch.ops.interp_points import (
-    pivoted_cholesky_points, pivoted_cholesky_points_blocked,
+    atomic_points, cvt_points, pivoted_cholesky_points,
+    pivoted_cholesky_points_blocked,
 )
 from pyscf_isdf_tpu_torch.utils.timing import null_timer
 
@@ -110,23 +111,33 @@ def _build_from_idx(aoR, ip_idx, coulG, mesh, weight, fft_chunk: int = 128,
     return aoRg, W, Vxi
 
 
-def _select(aoR, n_ip, c, method, timer):
+def _select(aoR, n_ip, c, method, timer, coords=None, rho=None,
+            atom_coords=None):
     """Step 1: the interpolation points (default c * nao of them)."""
     if n_ip is None:
         n_ip = int(c * aoR.shape[1])
     n_ip = min(n_ip, aoR.shape[0])
+    if method == "cvt" and (coords is None or rho is None):
+        raise ValueError("cvt selection needs coords and rho")
+    if method == "atomic" and (coords is None or atom_coords is None):
+        raise ValueError("atomic selection needs coords and atom_coords")
     with timer("isdf_select"):
         if method == "cholesky":
             return pivoted_cholesky_points(aoR, n_ip)[0]
         if method == "cholesky-blocked":
             return pivoted_cholesky_points_blocked(aoR, n_ip)[0]
-    if method in ("cvt", "atomic"):
-        raise NotImplementedError(f"IP selection {method!r}")
+        if method == "cvt":
+            return cvt_points(torch.as_tensor(coords, device=aoR.device),
+                              rho, n_ip)
+        if method == "atomic":
+            per_atom = max(1, n_ip // len(atom_coords))
+            return atomic_points(aoR, coords, atom_coords, per_atom)
     raise ValueError(f"unknown IP selection method {method!r}")
 
 
 def build_isdf(aoR, coulG, mesh, weight, n_ip=None, c: float = 8.0,
-               method: str = "cholesky", keep_v: bool = False,
+               method: str = "cholesky", coords=None, rho=None,
+               atom_coords=None, keep_v: bool = False,
                precision: str | None = None, timer=None) -> ISDF:
     """Build the ISDF factorization from gridded AOs.
 
@@ -135,7 +146,12 @@ def build_isdf(aoR, coulG, mesh, weight, n_ip=None, c: float = 8.0,
         coulG: (ngrids,) Coulomb kernel (G=0 -> 0; exxdiv handled post-hoc).
         weight: vol / ngrids.
         n_ip: number of interpolation points (default c * nao).
-        method: 'cholesky' (greedy selection) or 'cholesky-blocked'.
+        method: 'cholesky' (greedy selection), 'cholesky-blocked', 'cvt'
+            (density-weighted K-means; needs coords and rho) or 'atomic'
+            (greedy per atom's Voronoi cell; needs coords and atom_coords).
+        coords: (ngrids, 3) grid coordinates, for 'cvt' and 'atomic'.
+        rho: (ngrids,) density weights, for 'cvt'.
+        atom_coords: (natm, 3) atom positions, for 'atomic'.
         keep_v: keep Vxi for :func:`get_k_robust`.
         timer: optional stage timer (``timer(name)`` is a context manager).
     """
@@ -143,7 +159,7 @@ def build_isdf(aoR, coulG, mesh, weight, n_ip=None, c: float = 8.0,
         raise NotImplementedError(f"isdf precision {precision!r}: the port "
                                   "solves in the working dtype (float64)")
     timer = timer or null_timer
-    ip_idx = _select(aoR, n_ip, c, method, timer)
+    ip_idx = _select(aoR, n_ip, c, method, timer, coords, rho, atom_coords)
     coulG = torch.as_tensor(coulG, dtype=aoR.dtype, device=aoR.device)
     aoRg, W, Vxi = _build_from_idx(aoR, ip_idx, coulG, tuple(mesh), weight,
                                    keep_v=keep_v, timer=timer)
@@ -158,8 +174,11 @@ def build_isdf_multi(aoR, coulGs, mesh, weight, n_ip=None, c: float = 8.0,
 
     Returns a tuple of :class:`ISDF` sharing aoRg and ip_idx, one per
     kernel in ``coulGs``: the IP selection and the interpolation-vector
-    solve are done once. Arguments as :func:`build_isdf`.
+    solve are done once. Arguments as :func:`build_isdf`; ``method`` is
+    'cholesky' or 'cholesky-blocked', as in the reference.
     """
+    if method not in ("cholesky", "cholesky-blocked"):
+        raise ValueError(f"unknown IP selection method {method!r}")
     if precision is not None:
         raise NotImplementedError(f"isdf precision {precision!r}: the port "
                                   "solves in the working dtype (float64)")
@@ -205,3 +224,34 @@ def get_j(isdf: ISDF, dm):
     rho_ip = torch.einsum("pi,ij,pj->p", isdf.aoRg, dm, isdf.aoRg)
     u = isdf.W @ rho_ip
     return isdf.aoRg.T @ (u[:, None] * isdf.aoRg)
+
+
+def robust_k_error(isdf: ISDF, aoR, C_w, coulG, mesh, weight) -> float:
+    """Exact residual form of the robust-fit exchange-energy error:
+
+        tr(D (K_exact - K_robust)) = w sum_ij (r_ij, V r_ij) >= 0,
+        r_ij = rho_ij - rho~_ij,
+
+    for the density D = C_w C_w^T. The robust fit's error is quadratic
+    (E_rob = 2 (rho, V rho~) - (rho~, V rho~) per occupied pair), so the
+    deficit telescopes to the residual's Coulomb norm, a positive sum with
+    no cancellation of large terms. The residual r = rho - c xi is formed
+    explicitly, with xi re-solved by the build's own regularized solve so
+    that it is the residual of the factorization in use.
+
+    Args:
+        C_w: (nao, nocc) occupied orbitals scaled by sqrt(occupation).
+        coulG: (ngrids,) Coulomb kernel of the factorization.
+    Returns the deficit as a float.
+    """
+    C_w = torch.as_tensor(C_w, dtype=aoR.dtype, device=aoR.device)
+    coulG = torch.as_tensor(coulG, dtype=aoR.dtype, device=aoR.device)
+    psi = aoR @ C_w                                   # (ng, no)
+    psig = isdf.aoRg @ C_w                            # (nip, no)
+    xi = _solve_xi(aoR, isdf.aoRg)                    # (nip, ng)
+    total = torch.zeros((), dtype=aoR.dtype, device=aoR.device)
+    for i in range(psi.shape[1]):
+        r = (psi * psi[:, i:i + 1]).T - (psig * psig[:, i:i + 1]).T @ xi
+        Vr = ifft3(coulG * fft3(_complex(r), tuple(mesh)), tuple(mesh)).real
+        total += (r * Vr).sum()
+    return float(weight * total)

@@ -104,8 +104,6 @@ def select_ips(U, n_ip: int, method: str = "auto", blk: int = 64):
         return _select_ips_complex(U, n_ip)
     if method == "cholesky-blocked":
         return _select_ips_complex_blocked(U, n_ip, blk=blk)
-    if method in ("cvt", "atomic"):
-        raise NotImplementedError(f"IP selection {method!r}")
     raise ValueError(f"unknown IP selection method {method!r}")
 
 

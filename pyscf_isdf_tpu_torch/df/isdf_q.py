@@ -43,6 +43,7 @@ from pyscf_isdf_tpu_torch import lattice
 from pyscf_isdf_tpu_torch.df.fftdf import fft3, ifft3
 from pyscf_isdf_tpu_torch.df.isdf_k import periodic_parts, select_ips
 from pyscf_isdf_tpu_torch.ops import coulomb
+from pyscf_isdf_tpu_torch.ops.interp_points import cvt_points
 
 
 def unique_q(cell, kpts):
@@ -169,7 +170,7 @@ def coulG_table(cell, kpts, q_list, exxdiv=None, omega=None):
 def build_isdf_q(cell, aoR_k, kpts, n_ip=None, c: float = 16.0,
                  exxdiv=None, omega: float = 0.0, keep_x: bool = False,
                  method: str = "auto", blk: int = 64, coulG_q=None,
-                 precision: str | None = None) -> ISDFQ:
+                 precision: str | None = None, rho=None) -> ISDFQ:
     """Build the q-resolved k-point ISDF factorization on the device of
     ``aoR_k``.
 
@@ -180,15 +181,17 @@ def build_isdf_q(cell, aoR_k, kpts, n_ip=None, c: float = 16.0,
         exxdiv: None; 'ewald' is the SCF loop's madelung shift, pass None.
         keep_x: retain Xq/VXq/phase_q (needed by the robust exchange and
             the residual-deficit certificates).
-        method: 'cholesky', 'cholesky-blocked' or 'auto'.
+        method: 'cholesky', 'cholesky-blocked', 'auto' or 'cvt'
+            (density-weighted K-means on the primitive grid, weighted by
+            ``rho``; by default the k-averaged AO density
+            (1/nk) sum_k sum_mu |phi^k_mu|^2).
         coulG_q: optional caller-supplied (nq, ng) kernel table in q_list
             order (e.g. the coset slices of a supercell kernel,
             df/isdf_sym.py).
         omega: range separation of the per-q kernels (> 0 long-range erf,
             < 0 short-range erfc), for range-separated exchange.
 
-    ``precision='dd'`` and ``method='cvt'`` are not ported yet and raise
-    ``NotImplementedError``.
+    ``precision='dd'`` is not ported and raises ``NotImplementedError``.
     """
     if precision is not None:
         raise NotImplementedError(f"build precision {precision!r}: the port "
@@ -203,6 +206,11 @@ def build_isdf_q(cell, aoR_k, kpts, n_ip=None, c: float = 16.0,
         # exact limit: every grid point is an interpolation point (the
         # pivoted selection's Gram is singular past the pair rank)
         ip_idx = torch.arange(ng, device=dev)
+    elif method == "cvt":
+        if rho is None:
+            rho = (aoR_k.abs() ** 2).sum(2).mean(0)
+        ip_idx = cvt_points(torch.as_tensor(cell.uniform_grid(), device=dev),
+                            rho, n_ip)
     else:
         _, U = periodic_parts(cell, aoR_k, kpts)
         ip_idx = select_ips(U, n_ip, method, blk)

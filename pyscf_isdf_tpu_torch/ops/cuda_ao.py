@@ -356,27 +356,27 @@ def collocate_plain(l, counts, nprim, cuts, centers, exps, coeffs, coordsT,
     M = 2 * l + 1
     kw = dict(dtype=coordsT.dtype, device=coordsT.device)
     jm = max(1, int(counts.max())) if counts.numel() else 1   # live slots
-    rows = torch.empty((ns, K, M, nb, NB), **kw)
     prim = torch.arange(P, device=coordsT.device)
-    bc = max(1, chunk_elems // (ns * jm * NB * max(P, M, K)))
-    for b0 in range(0, nb, bc):
-        b1 = min(nb, b0 + bc)
-        xyz = coordsT[:, b0 * NB:b1 * NB].reshape(3, b1 - b0, 1, NB)
-        T = imgs[:, b0:b1, :, :jm]                            # (ns, bc, 3, jm)
-        d = torch.stack([(xyz[c][None] - centers[:, c, None, None, None])
-                         - T[:, :, c, :, None] for c in range(3)], -1)
-        r2 = (d * d).sum(-1)                                  # (ns, bc, jm, NB)
-        live = prim < nprim[:, b0:b1, :jm, None]               # (ns, bc, jm, P)
-        arg = -exps[:, None, None, None, :] * r2[..., None]    # (ns, bc, jm, NB, P)
-        g = torch.exp(arg) * (live[:, :, :, None, :]
-                              & (arg >= cuts[:, None, None, None, None]))
-        rad = torch.einsum("sbjgp,spk->sbjgk", g, coeffs)
-        ang = solid_harmonics(l, d, torch)                    # (ns, bc, jm, NB, M)
-        rows[:, :, :, b0:b1] = torch.einsum("sbjgk,sbjgm->skmbg", rad, ang)
-    rows = rows.reshape(ns * K * M, nb * NB)
     out = torch.zeros((ns * K * M, ng), **kw)
-    valid = dest >= 0
-    out[:, dest[valid].long()] = rows[:, valid]
+    # only the slots that land on the grid (a partial brick's others are
+    # padding), in blocks of about chunk_elems (slot, image, primitive) terms
+    slots_all = torch.nonzero(dest >= 0).squeeze(1)
+    pc = max(1, chunk_elems // (ns * jm * max(P, M, K)))
+    for i0 in range(0, slots_all.numel(), pc):
+        slots = slots_all[i0:i0 + pc]
+        brick = slots // NB
+        xyz = coordsT[:, slots]                                    # (3, n)
+        T = imgs[:, brick, :, :jm]                                 # (ns, n, 3, jm)
+        d = torch.stack([(xyz[c][None, :, None] - centers[:, c, None, None])
+                         - T[:, :, c] for c in range(3)], -1)      # (ns, n, jm, 3)
+        r2 = (d * d).sum(-1)                                       # (ns, n, jm)
+        live = prim < nprim[:, brick, :jm, None]                   # (ns, n, jm, P)
+        arg = -exps[:, None, None, :] * r2[..., None]
+        g = torch.exp(arg) * (live & (arg >= cuts[:, None, None, None]))
+        rad = torch.einsum("snjp,spk->snjk", g, coeffs)
+        ang = solid_harmonics(l, d, torch)                         # (ns, n, jm, M)
+        out[:, dest[slots].long()] = torch.einsum(
+            "snjk,snjm->skmn", rad, ang).reshape(ns * K * M, -1)
     return out
 
 

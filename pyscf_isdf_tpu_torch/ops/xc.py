@@ -1,7 +1,7 @@
-"""Exchange-correlation functionals in torch (closed-shell).
+"""Exchange-correlation functionals in torch, closed-shell and
+spin-polarised.
 
-Implements, at formula level, the closed-shell functionals of the
-reference package:
+Implements, at formula level, the functionals of the reference package:
 
   * LDA exchange (Slater/Dirac), VWN5 and VWN-RPA correlation,
   * PBE and PBEsol exchange + correlation, PBE0,
@@ -17,8 +17,11 @@ with no hand-coded potential formulas. Branch switches keep the
 reference's guards (``_max``/``_min`` of both branches, series below a
 threshold) so the branch not taken never feeds a NaN into a gradient,
 and ``_max``/``_min`` split the gradient evenly at a tie as the
-reference's ``maximum``/``minimum`` do. The spin-polarised forms are not
-ported yet.
+reference's ``maximum``/``minimum`` do. The spin-polarised forms
+(:meth:`XCSpec.exc_vxc_spin`, :meth:`XCSpec.exc_vxc_mgga_spin`) take the
+spin densities and the three spin-resolved gradient invariants
+sigma_aa, sigma_ab, sigma_bb; exchange follows the spin-scaling relation
+Ex[na, nb] = (Ex[2 na] + Ex[2 nb]) / 2, correlation the zeta forms.
 """
 from __future__ import annotations
 
@@ -206,6 +209,71 @@ def _ec_pbe_spin(rho, zeta, sigma, beta=0.06672455060314922):
     return ec0 + H
 
 
+_VWN5_F = dict(A=0.01554535, b=7.06042, c=18.0578, x0=-0.32500)
+_VWN5_A = dict(A=-1.0 / (6 * _PI**2), b=1.13107, c=13.0045, x0=-0.00475840)
+# VWN-RPA ferromagnetic and spin-stiffness parameters (libxc lda_c_vwn_rpa)
+_VWN3_F = dict(A=0.01554535, b=20.1231, c=101.578, x0=-0.743294)
+_VWN3_A = dict(A=-1.0 / (6 * _PI**2), b=1.06835, c=11.4813, x0=-0.228344)
+
+
+def _ec_vwn_spin(rho, zeta, p_para, p_ferro, p_alpha):
+    """VWN correlation with the standard zeta interpolation, for a given
+    (paramagnetic, ferromagnetic, spin-stiffness) parameter triple."""
+    ec_p = _vwn_eps(rho, p_para)
+    ec_f = _vwn_eps(rho, p_ferro)
+    alpha = _vwn_eps(rho, p_alpha)
+    f = _fzeta(zeta)
+    z4 = zeta**4
+    return ec_p + alpha * f / _FPP0 * (1 - z4) + (ec_f - ec_p) * f * z4
+
+
+def _ec_vwn5_spin(rho, zeta):
+    """VWN5 correlation with the standard zeta interpolation."""
+    return _ec_vwn_spin(rho, zeta, _VWN5, _VWN5_F, _VWN5_A)
+
+
+def _ex_lsda(rho_a, rho_b, rho):
+    """Spin-scaled Slater exchange per particle of the density ``rho``."""
+    return 0.5 * (_ex_slater(2 * rho_a) * 2 * rho_a
+                  + _ex_slater(2 * rho_b) * 2 * rho_b) / rho
+
+
+def _exc_lsda(rho_a, rho_b):
+    """LSDA (Slater + VWN5) exchange-correlation energy per particle of the
+    total density."""
+    rho = rho_a + rho_b
+    zeta = (rho_a - rho_b) / (rho + _TINY)
+    return _ex_lsda(rho_a, rho_b, rho + _TINY) + _ec_vwn5_spin(rho, zeta)
+
+
+def _exc_pbe_spin(rho_a, rho_b, sigma_aa, sigma_ab, sigma_bb, ex_frac=1.0,
+                  mu=0.2195149727645171, beta=0.06672455060314922):
+    """Spin-resolved PBE(sol) exc per particle of the total density."""
+    rho = rho_a + rho_b
+    zeta = (rho_a - rho_b) / (rho + _TINY)
+    sigma = sigma_aa + 2 * sigma_ab + sigma_bb
+    ex = 0.5 * (_ex_pbe(2 * rho_a, 4 * sigma_aa, mu) * 2 * rho_a
+                + _ex_pbe(2 * rho_b, 4 * sigma_bb, mu) * 2 * rho_b) \
+        / (rho + _TINY)
+    return ex_frac * ex + _ec_pbe_spin(rho, zeta, sigma, beta)
+
+
+def _exc_b3_spin(ax_lda, ax_b88, ac_vwn, ac_lyp, vwn):
+    """Spin-resolved B88/LYP hybrid mixes (BLYP, B3LYP, B3LYP5) with VWN
+    parameter triple ``vwn``: exc per particle of the total density."""
+    def exc(ra, rb, saa, sab, sbb):
+        rho = ra + rb + _TINY
+        zeta = (ra - rb) / rho
+        e = ax_b88 * (_ex_b88_channel(ra, saa) + _ex_b88_channel(rb, sbb)) / rho \
+            + ac_lyp * _ec_lyp_spin(ra, rb, saa, sab, sbb)
+        if ax_lda:
+            e = e + ax_lda * _ex_lsda(ra, rb, rho)
+        if ac_vwn:
+            e = e + ac_vwn * _ec_vwn_spin(rho, zeta, *vwn)
+        return e
+    return exc
+
+
 # ------------------------------------------------ range-separated exchange
 def _sr_lda_factor(a):
     """Exact erfc(w r)/r attenuation of the UEG exchange energy.
@@ -274,14 +342,17 @@ class XCSpec:
             self.family = "lda"
             self.hyb = 0.0
             self._exc = lambda rho: _ex_slater(rho) + _ec_vwn5(rho)
+            self._exc_spin = _exc_lsda
         elif name in ("lda,", "slater"):
             self.family = "lda"
             self.hyb = 0.0
             self._exc = _ex_slater
+            self._exc_spin = lambda ra, rb: _ex_lsda(ra, rb, ra + rb + _TINY)
         elif name == "pbe":
             self.family = "gga"
             self.hyb = 0.0
             self._exc = lambda rho, sigma: _ex_pbe(rho, sigma) + _ec_pbe(rho, sigma)
+            self._exc_spin = _exc_pbe_spin
         elif name == "pbesol":
             # PBE for solids (Perdew et al., PRL 100, 136406): exchange mu
             # at the GE2 value 10/81, correlation beta from the
@@ -292,27 +363,32 @@ class XCSpec:
                 _ex_pbe(rho, sigma, mu=10.0 / 81.0)
                 + _ec_pbe(rho, sigma, beta=0.046)
             )
+            self._exc_spin = lambda *a: _exc_pbe_spin(*a, mu=10.0 / 81.0, beta=0.046)
         elif name == "pbe0":
             self.family = "gga"
             self.hyb = 0.25
             self._exc = lambda rho, sigma: (
                 0.75 * _ex_pbe(rho, sigma) + _ec_pbe(rho, sigma)
             )
+            self._exc_spin = lambda *a: _exc_pbe_spin(*a, ex_frac=0.75)
         elif name == "blyp":
             self.family = "gga"
             self.hyb = 0.0
             self._exc = lambda rho, sigma: _ex_b88(rho, sigma) + _ec_lyp(rho, sigma)
+            self._exc_spin = _exc_b3_spin(0.0, 1.0, 0.0, 1.0, None)
         elif name in ("b3lyp", "b3lyp5"):
             # Gaussian-convention B3: 0.8 LDA_x + 0.72 dB88 + 0.2 HF
             # == 0.08 LDA_x + 0.72 B88(full) + 0.2 HF; correlation
             # 0.19 VWN + 0.81 LYP with VWN-RPA ('b3lyp') or VWN5 ('b3lyp5')
             self.family = "gga"
             self.hyb = 0.2
-            vwn = _VWN5 if name == "b3lyp5" else _VWN3
+            vwn = ((_VWN5, _VWN5_F, _VWN5_A) if name == "b3lyp5"
+                   else (_VWN3, _VWN3_F, _VWN3_A))
             self._exc = lambda rho, sigma: (
                 0.08 * _ex_slater(rho) + 0.72 * _ex_b88(rho, sigma)
-                + 0.19 * _vwn_eps(rho, vwn) + 0.81 * _ec_lyp(rho, sigma)
+                + 0.19 * _vwn_eps(rho, vwn[0]) + 0.81 * _ec_lyp(rho, sigma)
             )
+            self._exc_spin = _exc_b3_spin(0.08, 0.72, 0.19, 0.81, vwn)
         elif name == "hse06":
             # E_xc = 0.25 K_SR(w) + [E_x^PBE - 0.25 E_x^{SR-PBE}(w)] + E_c^PBE
             self.family = "gga"
@@ -322,6 +398,13 @@ class XCSpec:
             self._exc = lambda rho, sigma: (
                 _ex_pbe(rho, sigma) - 0.25 * _ex_wpbe_sr(rho, sigma, w)
                 + _ec_pbe(rho, sigma)
+            )
+            # spin scaling of the short-range exchange: (2 na, 4 s_aa) per channel
+            self._exc_spin = lambda ra, rb, saa, sab, sbb: (
+                _exc_pbe_spin(ra, rb, saa, sab, sbb)
+                - 0.25 * 0.5 * (_ex_wpbe_sr(2 * ra, 4 * saa, w) * 2 * ra
+                                + _ex_wpbe_sr(2 * rb, 4 * sbb, w) * 2 * rb)
+                / (ra + rb + _TINY)
             )
         elif name in ("hf", "hartree-fock"):
             self.family = "hf"
@@ -334,19 +417,12 @@ class XCSpec:
             self.hyb = 0.0
             self._exc = {"scan": xc_mgga.exc_scan, "tpss": xc_mgga.exc_tpss,
                          "r2scan": xc_mgga.exc_r2scan}[name]
+            self._exc_spin = {"scan": xc_mgga.exc_scan_spin,
+                              "tpss": xc_mgga.exc_tpss_spin,
+                              "r2scan": xc_mgga.exc_r2scan_spin}[name]
         else:
             raise NotImplementedError(f"xc functional {name!r}")
         self.alpha = 0.0 if name == "hse06" else self.hyb
-
-    def _grads(self, *args):
-        """(exc, d(rho exc)/d arg for each arg) by autograd; every arg is
-        clamped to 1e-30 first."""
-        args = [torch.clamp(a, min=_TINY).detach() for a in args]
-        with torch.enable_grad():
-            args = [a.requires_grad_(True) for a in args]
-            exc = self._exc(*args)
-            grads = torch.autograd.grad((args[0] * exc).sum(), args)
-        return (exc.detach(),) + tuple(grads)
 
     def exc_vxc(self, rho, sigma=None):
         """Energy density per particle and potentials.
@@ -355,9 +431,9 @@ class XCSpec:
         f = rho * exc by autograd (elementwise, so the gradient of the sum).
         """
         if self.family == "lda":
-            return self._grads(rho) + (None,)
+            return _exc_grads(self._exc, (rho,)) + (None,)
         if self.family == "gga":
-            return self._grads(rho, sigma)
+            return _exc_grads(self._exc, (rho, sigma))
         raise ValueError(f"{self.name}: exc_vxc takes an LDA or GGA functional")
 
     def exc_vxc_mgga(self, rho, sigma, tau):
@@ -367,4 +443,54 @@ class XCSpec:
         eval_xc convention, pyscf/dft/libxc.py:1282)."""
         if self.family != "mgga":
             raise ValueError(f"{self.name} is not a meta-GGA")
-        return self._grads(rho, sigma, tau)
+        return _exc_grads(self._exc, (rho, sigma, tau))
+
+    def exc_vxc_spin(self, rho_a, rho_b, sigma_aa=None, sigma_ab=None,
+                     sigma_bb=None):
+        """Spin-polarised energy density and potentials, derivatives of
+        f = (rho_a + rho_b) * exc.
+
+        LDA: returns (exc, (vrho_a, vrho_b), None).
+        GGA: returns (exc, (vrho_a, vrho_b), (vs_aa, vs_ab, vs_bb)).
+        ``exc`` is per particle of the total density. rho and the
+        same-spin sigmas are floored at 1e-30; sigma_ab, which may be
+        negative, is not.
+        """
+        if self.family == "lda":
+            exc, va, vb = _exc_grads(self._exc_spin, (rho_a, rho_b), spin=True)
+            return exc, (va, vb), None
+        if self.family == "gga":
+            exc, va, vb, vaa, vab, vbb = _exc_grads(
+                self._exc_spin, (rho_a, rho_b, sigma_aa, sigma_ab, sigma_bb),
+                spin=True, keep=(3,))
+            return exc, (va, vb), (vaa, vab, vbb)
+        raise ValueError(f"{self.name}: exc_vxc_spin takes an LDA or GGA "
+                         "functional")
+
+    def exc_vxc_mgga_spin(self, rho_a, rho_b, sigma_aa, sigma_ab, sigma_bb,
+                          tau_a, tau_b):
+        """Spin-polarised meta-GGA: returns (exc, (va, vb),
+        (vs_aa, vs_ab, vs_bb), (vt_a, vt_b)), floors as
+        :meth:`exc_vxc_spin` (tau floored too)."""
+        if self.family != "mgga":
+            raise ValueError(f"{self.name} is not a meta-GGA")
+        exc, va, vb, vaa, vab, vbb, vta, vtb = _exc_grads(
+            self._exc_spin,
+            (rho_a, rho_b, sigma_aa, sigma_ab, sigma_bb, tau_a, tau_b),
+            spin=True, keep=(3,))
+        return exc, (va, vb), (vaa, vab, vbb), (vta, vtb)
+
+
+def _exc_grads(exc_fn, args, spin: bool = False, keep=()):
+    """(exc, d(n exc)/d arg for each arg) by autograd, n = args[0], or
+    args[0] + args[1] with ``spin``; every arg but those at the positions
+    in ``keep`` is floored at 1e-30 first (the floor is not differentiated,
+    as the reference takes its derivatives at the floored values)."""
+    args = [(a if i in keep else torch.clamp(a, min=_TINY)).detach()
+            for i, a in enumerate(args)]
+    with torch.enable_grad():
+        args = [a.requires_grad_(True) for a in args]
+        exc = exc_fn(*args)
+        n = args[0] + args[1] if spin else args[0]
+        grads = torch.autograd.grad((n * exc).sum(), args)
+    return (exc.detach(),) + tuple(grads)

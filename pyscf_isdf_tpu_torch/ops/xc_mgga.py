@@ -1,9 +1,10 @@
 """meta-GGA exchange-correlation functionals (SCAN, TPSS, r2SCAN) in torch,
-closed shell.
+closed-shell and spin-polarised.
 
 Energy densities are transcribed from the published papers, as in the
 reference package; potentials (vrho, vsigma, vtau) come from autograd of
-f = rho * exc (:meth:`pyscf_isdf_tpu_torch.ops.xc.XCSpec.exc_vxc_mgga`).
+f = rho * exc (:meth:`pyscf_isdf_tpu_torch.ops.xc.XCSpec.exc_vxc_mgga`,
+``exc_vxc_mgga_spin``).
 
   SCAN: Sun, Ruzsinszky, Perdew, PRL 115, 036402 (2015) + SI.
   TPSS: Tao, Perdew, Staroverov, Scuseria, PRL 91, 146401 (2003).
@@ -14,8 +15,10 @@ Conventions: rho (density), sigma = |grad rho|^2, tau = 1/2 sum_occ
 |grad psi|^2. All inputs are clamped away from zero; the alpha -> 1
 essential singularity of the SCAN interpolation and the alpha = 2.5 switch
 of r2SCAN's are routed through guards that keep the branch not taken
-finite, so its gradient stays finite too. The spin-polarised forms are not
-ported yet.
+finite, so its gradient stays finite too. The spin-polarised forms
+(``exc_*_spin``) take (na, nb, sigma_aa, sigma_ab, sigma_bb, tau_a, tau_b):
+exchange by spin scaling, Ex[na, nb] = (Ex[2 na] + Ex[2 nb]) / 2,
+correlation from the total density and its polarisation.
 """
 from __future__ import annotations
 
@@ -143,6 +146,19 @@ def exc_scan(rho, sigma, tau):
     return _ex_scan(rho, sigma, tau) + _scan_ec_spin(rho, 0.0, sigma, tau)
 
 
+def _ex_spin_scaled(ex_fn, ra, rb, saa, sbb, ta, tb, rho):
+    """Spin-scaled meta-GGA exchange per particle of ``rho``."""
+    return 0.5 * (ex_fn(2 * ra, 4 * saa, 2 * ta) * 2 * ra
+                  + ex_fn(2 * rb, 4 * sbb, 2 * tb) * 2 * rb) / rho
+
+
+def exc_scan_spin(ra, rb, saa, sab, sbb, ta, tb):
+    """Spin-polarised SCAN exc per particle of the total density."""
+    rho = ra + rb + _TINY
+    return _ex_spin_scaled(_ex_scan, ra, rb, saa, sbb, ta, tb, rho) \
+        + _scan_ec_spin(rho, (ra - rb) / rho, saa + 2.0 * sab + sbb, ta + tb)
+
+
 # ------------------------------------------------------------------ TPSS
 _KAPPA = 0.804
 _CT = 1.59096
@@ -214,6 +230,13 @@ def exc_tpss(rho, sigma, tau):
     return _ex_tpss(rho, sigma, tau) \
         + _tpss_ec_spin(r2, r2, sigma / 4, sigma / 4, sigma / 4,
                         tau / 2, tau / 2)
+
+
+def exc_tpss_spin(ra, rb, saa, sab, sbb, ta, tb):
+    """Spin-polarised TPSS exc per particle of the total density."""
+    rho = ra + rb + _TINY
+    return _ex_spin_scaled(_ex_tpss, ra, rb, saa, sbb, ta, tb, rho) \
+        + _tpss_ec_spin(ra, rb, saa, sab, sbb, ta, tb)
 
 
 # ---------------------------------------------------------------- r2SCAN
@@ -374,3 +397,10 @@ def _r2scan_ec_spin(rho, zeta, sigma, tau):
 def exc_r2scan(rho, sigma, tau):
     """Restricted r2SCAN exc per particle."""
     return _ex_r2scan(rho, sigma, tau) + _r2scan_ec_spin(rho, 0.0, sigma, tau)
+
+
+def exc_r2scan_spin(ra, rb, saa, sab, sbb, ta, tb):
+    """Spin-polarised r2SCAN exc per particle of the total density."""
+    rho = ra + rb + _TINY
+    return _ex_spin_scaled(_ex_r2scan, ra, rb, saa, sbb, ta, tb, rho) \
+        + _r2scan_ec_spin(rho, (ra - rb) / rho, saa + 2.0 * sab + sbb, ta + tb)

@@ -2,3 +2,5 @@ from pyscf_isdf_tpu_torch.scf.hf import SCFSystem, build_scf_system, scf_kernel 
 from pyscf_isdf_tpu_torch.scf.khf import (  # noqa: F401
     KSCFSystem, build_kscf_system, kscf_kernel,
 )
+from pyscf_isdf_tpu_torch.scf.kuhf import kuhf_kernel  # noqa: F401
+from pyscf_isdf_tpu_torch.scf.uhf import uhf_kernel  # noqa: F401

@@ -29,6 +29,7 @@ from pyscf_isdf_tpu_torch.ops.ft_ao import overlap_and_kinetic
 from pyscf_isdf_tpu_torch.utils.timing import null_timer
 from pyscf_isdf_tpu_torch.ops.xc import XCSpec
 from pyscf_isdf_tpu_torch.scf.diis import DIIS
+from pyscf_isdf_tpu_torch.scf.occupations import smearing_occ_rhf
 
 
 @dataclass(frozen=True, eq=False)
@@ -217,6 +218,7 @@ def scf_kernel(
     level_shift: float = 0.0,
     damping: float = 0.0,
     sigma: float = 0.0,
+    smearing_method: str = "fermi",
     v_ext=None,
     xc_grids: str = "uniform",
     verbose: bool = False,
@@ -237,22 +239,25 @@ def scf_kernel(
             engine (the ISDF engines from one shared fit), combined as
             hyb K_full + (alpha - hyb) K_LR, each with its own probe-charge
             Madelung shift.
+        sigma: smearing width (Ha); ``sigma > 0`` gives finite-temperature
+            occupations (:func:`~pyscf_isdf_tpu_torch.scf.occupations.smearing_occ_rhf`,
+            ``smearing_method`` 'fermi' or Gaussian) and turns the
+            occupied-MO exchange off.
         v_ext: optional (nao, nao) external one-body potential added to the
             Fock operator each cycle but not to the reported energy.
         timer: optional StageTimer; records the ISDF build stages and, per
             iteration, 'cycle' and within it 'J', 'K', 'XC' and 'eigh'.
 
-    Smearing (``sigma``), Becke grids, the other DF engines and
-    ``isdf_precision='dd'`` are not ported yet and raise
-    ``NotImplementedError``.
+    Becke grids, the other DF engines and ``isdf_precision='dd'`` are not
+    ported yet and raise ``NotImplementedError``.
 
-    Returns a dict with e_tot, mo_energy, mo_coeff, mo_occ, dm, converged,
-    niter (tensors on the system's device), isdf, the factorization the
-    ISDF engines built (None otherwise), and isdf_lr, the long-range one of
-    a range-separated hybrid (None otherwise).
+    Returns a dict with e_tot, mo_energy, mo_coeff, mo_occ (None unless
+    smeared), dm, converged, niter (tensors on the system's device),
+    entropy, mu and e_free = e_tot - sigma * entropy (0, None and e_tot
+    without smearing), isdf, the factorization the ISDF engines built
+    (None otherwise), and isdf_lr, the long-range one of a range-separated
+    hybrid (None otherwise).
     """
-    if sigma:
-        raise NotImplementedError("smearing")
     if xc_grids != "uniform":
         raise NotImplementedError(f"xc_grids={xc_grids!r}")
     if df not in ("fftdf", "isdf", "isdf-robust"):
@@ -334,14 +339,27 @@ def scf_kernel(
             e, u = torch.linalg.eigh(X.T @ F @ X)
             return e, X @ u
 
+    smeared = sigma > 0
+    entropy, mu = 0.0, None
+
+    def make_dm(mo_e, mo_c):
+        """(density, occupations or None) of the eigenpairs."""
+        nonlocal entropy, mu
+        if not smeared:
+            return make_rdm1(mo_c, nocc), None
+        occs, entropy, mu = smearing_occ_rhf([mo_e.cpu().numpy()], system.nelec,
+                                             sigma, smearing_method)
+        occ = torch.as_tensor(occs[0], device=device)
+        return (mo_c * occ) @ mo_c.T, occ
+
+    mo_occ = None
     if dm0 is None:
         mo_e, mo_c = eig(hcore)
-        dm = make_rdm1(mo_c, nocc)
+        dm, mo_occ = make_dm(mo_e, mo_c)
     else:
         # Gamma-point densities are real
         dm0 = torch.as_tensor(dm0, device=device)
         dm = (dm0.real if dm0.is_complex() else dm0).to(torch.float64)
-    mo_occ = None
     if v_ext is not None:
         v_ext = torch.as_tensor(v_ext, dtype=torch.float64, device=device)
 
@@ -387,9 +405,9 @@ def scf_kernel(
             F = diis.update(F, err)
 
             mo_e, mo_c = eig(F)
-            dm_new = make_rdm1(mo_c, nocc)
+            dm_new, mo_occ = make_dm(mo_e, mo_c)
             # integer occupations -> occupied-MO exchange next cycle
-            C_w = mo_c[:, :nocc] * 2.0 ** 0.5
+            C_w = None if smeared else mo_c[:, :nocc] * 2.0 ** 0.5
 
             e_elec = _trace(dm, hcore) + 0.5 * _trace(dm, vj) + e_xc + e_k
             e_tot = float(e_elec + system.e_nuc)
@@ -412,6 +430,9 @@ def scf_kernel(
         "dm": dm,
         "converged": conv,
         "niter": it + 1,
+        "entropy": entropy,
+        "mu": mu,
+        "e_free": e_tot - sigma * entropy if smeared else e_tot,
         "isdf": facs[0] if facs else None,
         "isdf_lr": facs[1] if len(facs) > 1 else None,
     }

@@ -24,7 +24,7 @@ from pyscf_isdf_tpu_torch.ops.ft_ao import overlap_and_kinetic
 from pyscf_isdf_tpu_torch.ops.xc import XCSpec
 from pyscf_isdf_tpu_torch.scf.diis import DIIS
 from pyscf_isdf_tpu_torch.scf.hf import rsh_coeffs
-from pyscf_isdf_tpu_torch.scf.occupations import exact_count_occ
+from pyscf_isdf_tpu_torch.scf.occupations import exact_count_occ, smearing_occ_rhf
 from pyscf_isdf_tpu_torch.utils.timing import null_timer
 
 
@@ -241,6 +241,7 @@ def kscf_kernel(
     isdf_precision: Optional[str] = None,
     verbose: bool = False,
     sigma: float = 0.0,
+    smearing_method: str = "fermi",
     hubbard=None,
     xc_grids: str = "uniform",
     device=None,
@@ -259,21 +260,26 @@ def kscf_kernel(
     hyb K_full + (alpha - hyb) K_LR, each with its own probe-charge
     Madelung shift.
 
+    ``sigma > 0`` (Ha) gives finite-temperature occupations over the
+    k-stacked spectrum
+    (:func:`~pyscf_isdf_tpu_torch.scf.occupations.smearing_occ_rhf`,
+    ``smearing_method`` 'fermi' or Gaussian).
+
     ``timer`` (a :class:`~pyscf_isdf_tpu_torch.utils.timing.StageTimer`)
     records each iteration as 'cycle'.
 
-    Smearing (``sigma``), DFT+U (``hubbard``), Becke grids, the gdf/aegdf
-    engines and ``isdf_precision='dd'`` are not ported yet and raise
+    DFT+U (``hubbard``), Becke grids, the gdf/aegdf engines and
+    ``isdf_precision='dd'`` are not ported yet and raise
     ``NotImplementedError``.
 
     Returns a dict with e_tot, mo_energy, mo_coeff (per-k tensor lists),
-    mo_occ (per-k numpy arrays), dm (nk, nao, nao), converged, niter.
+    mo_occ (per-k numpy arrays), dm (nk, nao, nao), converged, niter,
+    entropy, mu and e_free = e_tot - sigma * entropy (0, None and e_tot
+    without smearing).
     """
     if isdf_precision is not None:
         raise NotImplementedError(f"isdf_precision={isdf_precision!r}: the "
                                   "port solves in float64")
-    if sigma:
-        raise NotImplementedError("smearing (sigma > 0)")
     if hubbard:
         raise NotImplementedError("DFT+U (hubbard)")
     if xc_grids != "uniform":
@@ -336,9 +342,17 @@ def kscf_kernel(
 
     S, hcore, X = system.S, system.hcore, system.X
 
+    smeared = sigma > 0
+    entropy, mu = 0.0, None
+
     def occupations(mo_e):
+        nonlocal entropy, mu
         flat = torch.cat(mo_e).cpu().numpy()
         e_host = np.split(flat, np.cumsum([len(e) for e in mo_e])[:-1])
+        if smeared:
+            occs, entropy, mu = smearing_occ_rhf(e_host, system.nelec_tot, sigma,
+                                                 smearing_method)
+            return occs
         return exact_count_occ(e_host, nocc_tot, scale=2.0)
 
     def make_dm(mo_c, occs):
@@ -381,7 +395,7 @@ def kscf_kernel(
             # occupied-MO exchange next cycle: only for a uniform integer fill
             counts = [int(np.sum(o > 0)) for o in occs]
             C_w_k = None
-            if len(set(counts)) == 1 and counts[0] > 0:
+            if not smeared and len(set(counts)) == 1 and counts[0] > 0:
                 no = counts[0]
                 C_w_k = torch.stack([
                     c[:, :no] * torch.as_tensor(np.sqrt(o[:no]), dtype=c.dtype,
@@ -410,4 +424,7 @@ def kscf_kernel(
         "dm": dm,
         "converged": conv,
         "niter": it + 1,
+        "entropy": entropy,
+        "mu": mu,
+        "e_free": e_tot - sigma * entropy if smeared else e_tot,
     }

@@ -73,12 +73,13 @@ def test_ewald_madelung_dzvp_cell():
 
 K_MODULES = ("kpts_helper", "k2gamma", "convert", "scf.khf", "scf.occupations",
              "df.fftdf_k", "df.isdf_k", "df.isdf_q", "df.isdf_sym",
-             "scf.jit_diis", "scf.jit_driver", "ops.xc_mgga")
+             "scf.jit_diis", "scf.jit_driver", "ops.xc_mgga", "scf.uhf",
+             "scf.kuhf")
 
 
 def test_port_imports_no_jax():
-    """Importing every port module, the k-point ones, the graph drivers and
-    the meta-GGAs named, leaves jax and the JAX package out of sys.modules
+    """Importing every port module, the k-point ones, the graph drivers, the
+    meta-GGAs and the open-shell drivers named, leaves jax and the JAX package out of sys.modules
     (a subprocess: this test process has imported jax)."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -107,13 +108,13 @@ def test_entry_point_without_cuda_raises(monkeypatch):
 
 
 def test_k_entry_points_default_to_cuda(monkeypatch):
-    """build_kscf_system and kscf_kernel take device=None as the GPU: they
-    refuse without CUDA and run with device='cpu'."""
+    """build_kscf_system, kscf_kernel and kuhf_kernel take device=None as the
+    GPU: they refuse without CUDA and run with device='cpu'."""
     import inspect
 
-    from pyscf_isdf_tpu_torch.scf import build_kscf_system, kscf_kernel
+    from pyscf_isdf_tpu_torch.scf import build_kscf_system, kscf_kernel, kuhf_kernel
 
-    for fn in (build_kscf_system, kscf_kernel):
+    for fn in (build_kscf_system, kscf_kernel, kuhf_kernel):
         assert inspect.signature(fn).parameters["device"].default is None
     cell = diamond_primitive(mesh=(7, 7, 7))
     kpts = np.zeros((1, 3))
@@ -123,7 +124,11 @@ def test_k_entry_points_default_to_cuda(monkeypatch):
         build_kscf_system(cell, kpts)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         kscf_kernel(system, xc="lda,vwn")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        kuhf_kernel(system, xc="lda,vwn")
     # a system built on another device is refused, not copied across
     with pytest.raises(ValueError, match="lives on cpu"):
         kscf_kernel(system, xc="lda,vwn", device="cuda")
+    with pytest.raises(ValueError, match="lives on cpu"):
+        kuhf_kernel(system, xc="lda,vwn", device="cuda")
     assert kscf_kernel(system, xc="lda,vwn", device="cpu")["converged"]

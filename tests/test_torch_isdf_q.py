@@ -13,7 +13,10 @@ relative at compressions where the regularized Gram is well conditioned
 condition number near 1e12, and two Cholesky orderings then need not
 agree to 1e-10 in Xq); exchange, Coulomb, the phased kernel and the
 certificates within 1e-10 relative, at c=8 on the reference's own
-factorization.
+factorization. The CVT build is held with the CVT points themselves fixed
+to the reference's (the selection is held in test_torch_isdf.py: on the
+uniform grid its first Lloyd step has exact ties that the two packages
+break differently at round-off).
 """
 from types import SimpleNamespace
 
@@ -132,3 +135,34 @@ def test_deficit_certificates(systems, reference_factorization):
                                          port.mesh, port.weight)
     assert d0 > 0
     assert abs(d_dev - d0) < 1e-10 * d0 and abs(d_host - d0) < 1e-10 * d0
+
+
+def test_isdf_q_build_cvt(systems):
+    """method='cvt': the selection runs on the primitive grid weighted by
+    the k-averaged AO density (the reference's default rho, 1e-14), and
+    with the reference's CVT points the build matches (c=4, 1e-10)."""
+    from pyscf_isdf_tpu.ops import interp_points as ref_ip
+
+    rcell, ref, cell, port, kpts, _ = systems
+    f0 = ref_isdf_q.build_isdf_q(rcell, ref.aoR_k, kpts, c=4, keep_x=True,
+                                 method="cvt")
+    rho0 = np.asarray(jnp.mean(jnp.sum(jnp.abs(ref.aoR_k) ** 2, axis=2), axis=0))
+    seen = {}
+
+    def fixed_points(coords, rho, n_ip):
+        seen.update(coords=coords, rho=rho, n_ip=n_ip)
+        return torch.as_tensor(np.array(ref_ip.cvt_points(
+            jnp.asarray(coords.numpy()), jnp.asarray(rho.numpy()), n_ip)))
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(isdf_q, "cvt_points", fixed_points)
+    try:
+        f = isdf_q.build_isdf_q(cell, port.aoR_k, kpts, c=4, keep_x=True, method="cvt")
+    finally:
+        mp.undo()
+    assert seen["n_ip"] == 4 * cell.nao
+    assert np.abs(seen["coords"].numpy() - rcell.uniform_grid()).max() < 1e-14
+    assert np.abs(seen["rho"].numpy() - rho0).max() < 1e-14 * rho0.max()
+    assert np.array_equal(f.ip_idx.numpy(), np.asarray(f0.ip_idx))
+    for name in ("Ag", "Wq", "Xq", "VXq", "phase_q"):
+        assert rel(getattr(f, name), getattr(f0, name)) < 1e-10, name

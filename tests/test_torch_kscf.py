@@ -186,7 +186,7 @@ def test_ragged_orthogonalizers(systems):
 
 def test_unported_options_raise(systems):
     _, _, cell, port, kpts = systems
-    for kw in (dict(sigma=0.01), dict(isdf_precision="dd", df="isdf_q"),
+    for kw in (dict(hubbard={"C 2p": 0.1}), dict(isdf_precision="dd", df="isdf_q"),
                dict(xc_grids="becke"), dict(exxdiv="vcut_sph"), dict(df="gdf")):
         with pytest.raises(NotImplementedError):
             kscf_kernel(port, device="cpu", **{"xc": "pbe0", **kw})

@@ -74,7 +74,7 @@ def test_scf_on_reference_system(systems, ref_scf_run):
 def test_unported_options_raise(systems):
     _, port_sys = systems
     with pytest.raises(NotImplementedError):
-        scf_kernel(port_sys, xc="pbe0", sigma=0.01)
+        scf_kernel(port_sys, xc="pbe0", df="gdf")
     with pytest.raises(NotImplementedError):
         scf_kernel(port_sys, xc="hse06", xc_grids="becke")
     with pytest.raises(NotImplementedError):

@@ -13,6 +13,26 @@ SCAN's interpolation at alpha = 1 and r2SCAN's at alpha-bar = 2.5, each
 approached from both sides. Bars, relative and per point: 1e-12 on exc,
 1e-10 on the potentials (the same formulas, autograd against autodiff,
 differing in rounding only).
+
+The spin-polarised forms are held the same way on the same points (the
+same shapes, so the reference's eager operations compiled for the
+closed-shell cases serve): the random ones split between the spins at
+random (zeta over (-1, 1), sigma_ab of either sign), the switch points
+evenly (the spin-scaled exchange and the total correlation then sit at
+the same switches). The reference side is its exc_vxc_spin and
+exc_vxc_mgga_spin, run eagerly, with the vmap(grad(f, argnums=i)) it
+takes for every input served by one jax.vjp of the same elementwise f
+(_OneVjp: the same derivatives, a third of the eager dispatch). Some spin-polarised
+potentials cancel large terms at some points (TPSS's spin-gradient term,
+O(1/rho^2), at a strongly polarised low density: a one-ulp change of one
+input moves v_sigma_aa by 1e-8 of itself there), so any two float64
+evaluations differ there by more than 1e-10. The spin bar per point is
+therefore 1e-10 relative plus four times the point's rounding response:
+the sum over inputs of the change of the port's output when that input
+moves by one ulp. Where that response is below 1e-10 relative, which is
+all but a few points, the bar is 1e-10 relative. The unpolarised limit
+exc_vxc_spin(rho/2, rho/2, sigma/4, sigma/4, sigma/4) == exc_vxc(rho,
+sigma) holds in the port for every functional, at the same bars.
 """
 import numpy as np
 import pytest
@@ -71,3 +91,119 @@ def test_functional_parity(name):
         assert np.all(np.isfinite(o))
         bar = 1e-12 if i == 0 else 1e-10
         assert np.all(np.abs(o - r) <= bar * np.abs(r)), (i, np.max(np.abs(o - r) / np.abs(r)))
+
+
+def _spin_sample():
+    """(rho_a, rho_b, s_aa, s_ab, s_bb, tau_a, tau_b) on the points of
+    _sample(): the random ones split between the spins at random (zeta
+    over (-1, 1), sigma_ab of either sign), the switch points evenly."""
+    rho, sigma, tau = _sample()
+    rng = np.random.default_rng(12)
+    n = 40
+    u = np.concatenate([rng.uniform(0.0, 1.0, n), np.full(len(rho) - n, 0.5)])
+    v = np.concatenate([rng.uniform(0.0, 1.0, n), np.full(len(rho) - n, 0.5)])
+    cos = np.concatenate([rng.uniform(-1.0, 1.0, n), np.ones(len(rho) - n)])
+    ra, rb = u * rho, (1 - u) * rho
+    saa, sbb = u * u * sigma, (1 - u) ** 2 * sigma
+    sab = np.sqrt(saa * sbb) * cos
+    return ra, rb, saa, sab, sbb, v * tau, (1 - v) * tau
+
+
+class _OneVjp:
+    """Stands in for the module ``jax`` inside the reference's ops/xc.py,
+    whose spin potentials are vmap(grad(f, argnums=i))(*args) of one
+    elementwise f for every i: all of them come from one jax.vjp of f.
+    Everything else is jax's."""
+
+    def __init__(self):
+        self._last = None
+
+    def __getattr__(self, name):
+        return getattr(jax, name)
+
+    def grad(self, f, argnums=0):
+        return f, argnums
+
+    def vmap(self, f_argnum):
+        f, i = f_argnum
+
+        def run(*args):
+            if self._last is None or self._last[0] is not f:
+                e, vjp = jax.vjp(f, *args)
+                self._last = (f, vjp(jnp.ones_like(e)))
+            return self._last[1][i]
+        return run
+
+
+@pytest.mark.parametrize("name", ["lda", "pbe0", "b3lyp", "hse06", "scan", "tpss",
+                                  "r2scan"])
+def test_spin_functional_parity(name):
+    """One functional of each spin-polarised form: LSDA (VWN5 spin),
+    spin PBE (PBE/PBE0/PBEsol), the B88/LYP mixes with VWN-RPA spin
+    (BLYP/B3LYP/B3LYP5), HSE06's spin-scaled short-range exchange, and
+    the three meta-GGAs."""
+    args = _spin_sample()
+    ref_spec, spec = ref_xc.XCSpec(name), xc.XCSpec(name)
+    n = {"lda": 2, "gga": 5, "mgga": 7}[spec.family]
+    jargs = tuple(map(jnp.asarray, args[:n]))
+    targs = tuple(map(torch.as_tensor, args[:n]))
+    method = "exc_vxc_mgga_spin" if n == 7 else "exc_vxc_spin"
+    mp = pytest.MonkeyPatch()
+    mp.setattr(ref_xc, "jax", _OneVjp())
+    try:
+        ref = getattr(ref_spec, method)(*jargs)
+    finally:
+        mp.undo()
+    out = getattr(spec, method)(*targs)
+    ref, out = ((o[0],) + sum((p for p in o[1:] if p), ()) for o in (ref, out))
+    assert len(out) == len(ref)
+    resp = _ulp_response(spec, targs, n)
+    for i, (o, r, d) in enumerate(zip(out, ref, resp)):
+        o, r = o.numpy(), np.asarray(r)
+        assert np.all(np.isfinite(o))
+        bar = (1e-12 if i == 0 else 1e-10) * np.abs(r) + 4 * d
+        assert np.all(np.abs(o - r) <= bar), (i, np.max(np.abs(o - r) / np.abs(r)))
+
+
+def _ulp_response(spec, targs, n):
+    """Per output, the sum over the first ``n`` inputs of |change| of the
+    port's output when that input moves by one ulp."""
+    def flat(*a):
+        out = spec.exc_vxc_mgga_spin(*a) if spec.family == "mgga" else spec.exc_vxc_spin(*a)
+        return [out[0]] + [t for part in out[1:] if part for t in part]
+
+    base = flat(*targs[:n])
+    resp = [torch.zeros_like(b) for b in base]
+    for k in range(n):
+        moved = list(targs[:n])
+        moved[k] = torch.nextafter(moved[k], torch.full_like(moved[k], np.inf))
+        for r, b, m in zip(resp, base, flat(*moved)):
+            r += (m - b).abs()
+    return [r.numpy() for r in resp]
+
+
+@pytest.mark.parametrize("name", ["lda", "lda,", "pbe", "pbe0", "pbesol", "blyp",
+                                  "b3lyp", "b3lyp5", "hse06", "scan", "tpss",
+                                  "r2scan"])
+def test_unpolarised_limit(name):
+    """exc_vxc_spin at rho_a = rho_b = rho/2, sigma_ss' = sigma/4 (tau_s =
+    tau/2) against exc_vxc: exc equal, vrho_a = vrho,
+    (vs_aa + vs_ab + vs_bb)/4 = vsigma, (vt_a + vt_b)/2 = vtau."""
+    rho, sigma, tau = map(torch.as_tensor, _sample())
+    spec = xc.XCSpec(name)
+    h, q = rho / 2, sigma / 4
+    if spec.family == "lda":
+        e0, v0, _ = spec.exc_vxc(rho)
+        e, (va, vb), _ = spec.exc_vxc_spin(h, h)
+        pairs = [(e, e0), (va, v0), (vb, v0)]
+    elif spec.family == "gga":
+        e0, v0, vs0 = spec.exc_vxc(rho, sigma)
+        e, (va, vb), vs = spec.exc_vxc_spin(h, h, q, q, q)
+        pairs = [(e, e0), (va, v0), (vb, v0), (sum(vs) / 4, vs0)]
+    else:
+        e0, v0, vs0, vt0 = spec.exc_vxc_mgga(rho, sigma, tau)
+        e, (va, vb), vs, (ta, tb) = spec.exc_vxc_mgga_spin(h, h, q, q, q, tau / 2, tau / 2)
+        pairs = [(e, e0), (va, v0), (vb, v0), (sum(vs) / 4, vs0), ((ta + tb) / 2, vt0)]
+    for i, (o, r) in enumerate(pairs):
+        bar = 1e-12 if i == 0 else 1e-10
+        assert torch.all((o - r).abs() <= bar * r.abs()), (i, float(((o - r) / r).abs().max()))
