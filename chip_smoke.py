@@ -78,11 +78,31 @@ run from the root of a checkout. Phases, each of which fails the script:
      (1e-8 Ha, equal iteration counts): UHF/UKS HF, PBE0/isdf, SCAN,
      HSE06/isdf, KUKS PBE/isdf, smeared RKS and KRKS (Fermi-Dirac and
      Gaussian), and the CVT (centroids 1e-12 Bohr, indices equal but at
-     ties) and atomic selections from the same draw.
+     ties) and atomic selections from the same draw;
+ 10. MP2 and the IBZ k-point SCF: (a) mp2_energy (exact ERIs on the FFT
+     grid) on phase 5's system and PBE0 orbitals (nocc 108, nvir 108):
+     E_MP2 negative and finite, the ao2mo seconds (its FFT round trips
+     and its pair GEMM timed apart) and the assembly's, peak device
+     memory below 40 GB; (b) thc_mp2_energy (BASELINE config 5) on
+     phase 5's c=16 factorization, |E_THC - E_MP2| below 1e-2 relative;
+     (c) on phase 7's k-system, a KRHF (fftdf) then kmp2_energy (under
+     30 s), thc_kmp2_energy on build_isdf_k(c=10, keep_xi=True) (within
+     1e-4 Ha), kump2_energy of a closed-shell KUHF (1e-8 Ha) and
+     kmp2_ksymm_energy of the IBZ KRHF (1e-6 Ha); (d) kscf_ibz_kernel
+     KRKS LDA and PBE0/isdf c=10 against kscf_kernel (IBZ_MESH_BAR, the
+     mesh's own symmetry breaking; iteration counts and median seconds an
+     iteration of both), the trivial reduction against the full zone
+     (1e-10 Ha, equal counts), a Fermi-smeared IBZ KRKS against 9c's
+     (e_free, mu, entropy), and the card's E_IBZ - E_full of KRHF (10c's
+     pair), KRKS LDA and the smeared LDA against the CPU's on a copy of
+     the same system (IBZ_CPU_BAR); (e) card against CPU: MP2, THC-MP2 and KMP2
+     on the Be cell of tests/test_mp2.py (1e-12 Ha, the same orbitals on
+     both), and a 2x2x2 IBZ KRHF (1e-10 Ha, equal iteration counts).
 
 It prints the kernels' JSON summary and, as its last line,
 {"ok": true, "device": {...}}. It imports nothing of JAX.
 """
+import dataclasses
 import json
 import math
 import os
@@ -889,6 +909,7 @@ def phase_spin_k(torch, ksys, e_cell):
     check(res["converged"], "9c: the smeared SCF did not converge")
     check(abs(n - ksys.nelec_tot) < 1e-10, "9c: smeared occupations miss the electron count")
     log(f"9c launches: K1 {collocate.launches}, K2 {robust_k_cross.launches}")
+    return res
 
 
 def phase_small_spin(torch):
@@ -979,6 +1000,262 @@ def phase_small_spin(torch):
     return k1
 
 
+# phase 10: the IBZ SCF's energy against the full zone's on phase 7's 16^3
+# mesh. The two part by the mesh's symmetry-breaking collocation error
+# (the AO products alias on a coarse grid), which the reduction does not
+# remove: 7.8e-6 Ha (LDA) and 8.2e-6 Ha (KRHF) on the CPU in float64 at
+# nk 27, falling to 5.5e-11 Ha at 24^3 (tools/ibz_mp2_rehearsal.py). The
+# trivial reduction (every k its own representative) isolates the
+# driver: 1e-10.
+IBZ_MESH_BAR = 1e-5
+# The reduction at nk 27 proper (27 k-points onto 4, rotations and
+# weights): the card's E_IBZ - E_full against the CPU's in float64 on the
+# same system, which the mesh's part does not enter.
+IBZ_CPU_BAR = 1e-9
+
+
+def timed(torch, fn):
+    """fn() and its seconds, the card synchronised around it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def on_cpu(torch, system):
+    """A copy of a system dataclass with every tensor on the CPU."""
+    def cpu(v):
+        if isinstance(v, torch.Tensor):
+            return v.cpu()
+        return tuple(cpu(x) for x in v) if isinstance(v, tuple) else v
+    return dataclasses.replace(system, **{f.name: cpu(getattr(system, f.name))
+                                          for f in dataclasses.fields(system)})
+
+
+def phase_mp2_main(torch, main):
+    """10a: exact MP2 on the FFT grid and 10b: THC-MP2 (BASELINE config 5)
+    on phase 5's system, orbitals and c=16 factorization."""
+    from pyscf_isdf_tpu_torch.mp import mp2_energy, thc_mp2_energy
+    from pyscf_isdf_tpu_torch.ops.cuda_ao import collocate
+    from pyscf_isdf_tpu_torch.ops.cuda_robust_k import robust_k_cross
+    from pyscf_isdf_tpu_torch.utils.timing import StageTimer
+
+    system, res = main["system"], main["res"]
+    nocc = system.nelec // 2
+    nvir = res["mo_coeff"].shape[1] - nocc
+    ng, npair, n_ip = system.aoR.shape[0], nocc * nvir, res["isdf"].n_ip
+    collocate.launches = 0
+    robust_k_cross.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    timer = StageTimer("cuda")
+    e_mp2, secs = timed(torch, lambda: mp2_energy(system, res, device="cuda", timer=timer))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ao2mo, asm = sum(timer.seconds["ao2mo"]), sum(timer.seconds["assembly"])
+    fft, gemm = sum(timer.seconds["ao2mo fft"]), sum(timer.seconds["ao2mo gemm"])
+    flop = 2.0 * npair * npair * ng
+    log(f"10a exact MP2 (FFT-grid ERIs, {npair} pair FFT round trips of {ng} points) at the "
+        f"main width, nocc {nocc}, nvir {nvir}: E_MP2 {e_mp2:.10f} Ha; ao2mo {ao2mo:.3f} s: "
+        f"pair formation and FFT round trips {fft:.3f} s, pair GEMM {gemm:.3f} s "
+        f"({flop:.3e} flop, {flop / gemm / 1e12:.1f} TFLOP/s; "
+        f"{len(timer.seconds['ao2mo gemm'])} chunks); assembly {asm:.3f} s, {secs:.3f} s "
+        f"in all; peak device memory {peak:.2f} GB (bar 40)")
+    check(math.isfinite(e_mp2) and e_mp2 < 0, f"10a: E_MP2 {e_mp2} is not negative and finite")
+    check(peak < 40, f"10a: peak device memory {peak:.2f} GB >= 40 GB")
+
+    torch.cuda.reset_peak_memory_stats()
+    tb = StageTimer("cuda")
+    e_thc, secs_thc = timed(torch, lambda: thc_mp2_energy(
+        res["isdf"], res["mo_coeff"], res["mo_energy"], nocc, device="cuda", timer=tb))
+    peak_thc = torch.cuda.max_memory_allocated() / 1e9
+    diff = abs(e_thc - e_mp2)
+    rel = diff / abs(e_mp2)
+    flop_thc = 2.0 * n_ip * n_ip * npair + 2.0 * npair * npair * n_ip
+    log(f"10b THC-MP2 (BASELINE config 5) on phase 5's c=16 factorization (n_ip {n_ip}): "
+        f"E_THC {e_thc:.10f} Ha; {secs_thc:.3f} s (ovov {sum(tb.seconds['thc ovov']):.3f} s, "
+        f"{flop_thc:.3e} flop; assembly {sum(tb.seconds['assembly']):.3f} s); "
+        f"|E_THC - E_MP2| {diff:.3e} Ha, relative {rel:.3e} (bar 1e-2); peak device "
+        f"memory {peak_thc:.2f} GB")
+    log(f"10a-10b launches: K1 {collocate.launches}, K2 {robust_k_cross.launches}")
+    check(rel < 1e-2, f"10b: THC-MP2 misses the exact MP2 by {rel:.3e} relative")
+    return dict(e_mp2=e_mp2, e_thc=e_thc, mp2_s=secs, thc_s=secs_thc, fft_s=fft,
+                gemm_s=gemm)
+
+
+def phase_kmp2(torch, ksys):
+    """10c: k-point MP2 on phase 7's k-system: exact KMP2, THC-KMP2, KUMP2
+    of a closed-shell KUHF, and KMP2 on the IBZ KRHF (kmp2_ksymm)."""
+    from pyscf_isdf_tpu_torch.df import isdf_k
+    from pyscf_isdf_tpu_torch.mp.kmp2 import kmp2_energy, kmp2_ksymm_energy, kump2_energy
+    from pyscf_isdf_tpu_torch.mp.thc import thc_kmp2_energy
+    from pyscf_isdf_tpu_torch.scf import kscf_ibz_kernel, kscf_kernel, kuhf_kernel
+
+    nk = len(ksys.kpts)
+    krhf, s_scf = timed(torch, lambda: kscf_kernel(ksys, xc=None, conv_tol=1e-10,
+                                                   device="cuda"))
+    check(krhf["converged"], "10c: KRHF did not converge")
+    e_k, s_k = timed(torch, lambda: kmp2_energy(ksys, krhf, device="cuda"))
+    log(f"10c KRHF (fftdf, nk {nk}): E/cell {krhf['e_tot']:.10f} ({krhf['niter']} "
+        f"iterations, {s_scf:.2f} s); KMP2 {e_k:.12f} Ha ({s_k:.3f} s, bar 30 s)")
+    check(math.isfinite(e_k) and e_k < 0, f"10c: KMP2 {e_k} is not negative and finite")
+    check(s_k < 30, f"10c: KMP2 took {s_k:.1f} s")
+
+    fac, s_b = timed(torch, lambda: isdf_k.build_isdf_k(ksys.cell, ksys.aoR_k, ksys.kpts,
+                                                        c=10, keep_xi=True))
+    e_t, s_t = timed(torch, lambda: thc_kmp2_energy(ksys, krhf, fac, device="cuda"))
+    d_thc = abs(e_t - e_k)
+    log(f"10c THC-KMP2 (build_isdf_k c=10, n_ip {fac.n_ip}, {s_b:.2f} s): {e_t:.12f} Ha "
+        f"({s_t:.3f} s); |THC - exact| {d_thc:.3e} Ha (bar 1e-4)")
+    del fac
+    torch.cuda.empty_cache()
+    check(d_thc < 1e-4, f"10c: THC-KMP2 misses KMP2 by {d_thc:.3e} Ha")
+
+    kuhf, s_u = timed(torch, lambda: kuhf_kernel(ksys, xc=None, conv_tol=1e-10,
+                                                 device="cuda"))
+    e_u, s_ue = timed(torch, lambda: kump2_energy(ksys, kuhf, device="cuda"))
+    d_u = abs(e_u - e_k)
+    log(f"10c KUMP2 on the closed-shell KUHF ({kuhf['niter']} iterations, {s_u:.2f} s): "
+        f"{e_u:.12f} Ha ({s_ue:.3f} s); |KUMP2 - KMP2| {d_u:.3e} Ha (bar 1e-8)")
+    check(kuhf["converged"] and d_u < 1e-8, "10c: KUMP2 != KMP2 on the closed shell")
+
+    ibz, s_i = timed(torch, lambda: kscf_ibz_kernel(ksys, xc=None, conv_tol=1e-10,
+                                                    device="cuda"))
+    e_s, s_s = timed(torch, lambda: kmp2_ksymm_energy(ksys, ibz, device="cuda"))
+    d_s = abs(e_s - e_k)
+    log(f"10c kmp2_ksymm on the IBZ KRHF (nk_ibz {ibz['ibz'].nk_ibz}, {ibz['niter']} "
+        f"iterations, {s_i:.2f} s): {e_s:.12f} Ha ({s_s:.3f} s); |ksymm - KMP2| {d_s:.3e} Ha "
+        f"(bar 1e-6)")
+    check(ibz["converged"] and d_s < 1e-6, "10c: kmp2_ksymm != KMP2")
+    return dict(e_kmp2=e_k, kmp2_s=s_k, thc_err=d_thc, thc_s=s_t,
+                krhf_gap=ibz["e_tot"] - krhf["e_tot"])
+
+
+def phase_ibz(torch, ksys, smeared, krhf_gap):
+    """10d: the IBZ SCF at nk 27 against the full-zone SCF of the same
+    settings, and a Fermi-smeared IBZ KRKS against 9c's ``smeared``; the
+    card's gaps (``krhf_gap`` is 10c's) against the CPU's."""
+    import numpy as np
+
+    from pyscf_isdf_tpu_torch import symm
+    from pyscf_isdf_tpu_torch.scf import kscf_ibz_kernel, kscf_kernel
+    from pyscf_isdf_tpu_torch.utils.timing import StageTimer
+
+    out = {}
+    for label, kw in (("KRKS LDA", dict(xc="lda")),
+                      ("KRKS PBE0/isdf c=10", dict(xc="pbe0", df="isdf", isdf_c=10))):
+        ti, tf = StageTimer("cuda"), StageTimer("cuda")
+        ibz, s_i = timed(torch, lambda: kscf_ibz_kernel(ksys, conv_tol=1e-10, device="cuda",
+                                                        timer=ti, **kw))
+        full, s_f = timed(torch, lambda: kscf_kernel(ksys, conv_tol=1e-10, device="cuda",
+                                                     timer=tf, **kw))
+        de = abs(ibz["e_tot"] - full["e_tot"])
+        mi, mf = (1e3 * statistics.median(t.seconds["cycle"]) for t in (ti, tf))
+        log(f"10d {label}: nk_ibz {ibz['ibz'].nk_ibz} of {len(ksys.kpts)}; iterations IBZ "
+            f"{ibz['niter']}, full {full['niter']}; median ms an iteration IBZ {mi:.2f}, full "
+            f"{mf:.2f}; {s_i:.2f} / {s_f:.2f} s in all; E/cell {ibz['e_tot']:.10f} / "
+            f"{full['e_tot']:.10f}, |dE| {de:.3e} Ha (bar {IBZ_MESH_BAR:g}, the mesh's "
+            f"symmetry breaking)")
+        check(ibz["converged"] and full["converged"], f"10d {label}: an SCF did not converge")
+        check(de < IBZ_MESH_BAR, f"10d {label}: |E_IBZ - E_full| {de:.3e} Ha")
+        out[label] = dict(ms_ibz=mi, ms_full=mf, de=de, gap=ibz["e_tot"] - full["e_tot"])
+
+    nk, natm = len(ksys.kpts), ksys.cell.natm
+    identity = symm.SpaceGroupOp(R=np.eye(3), t=np.zeros(3), perm=np.arange(natm),
+                                 W=np.eye(3, dtype=int))
+    trivial = symm.IBZInfo(kpts=ksys.kpts, ibz_idx=np.arange(nk), weights=np.ones(nk),
+                           bz2ibz=np.arange(nk), op_idx=np.zeros(nk, dtype=np.int64),
+                           tr=np.zeros(nk, dtype=bool), ops=(identity,))
+    res = kscf_ibz_kernel(ksys, info=trivial, xc="lda", conv_tol=1e-10, device="cuda")
+    full = kscf_kernel(ksys, xc="lda", conv_tol=1e-10, device="cuda")
+    de = abs(res["e_tot"] - full["e_tot"])
+    log(f"10d the trivial reduction (every k its own representative), KRKS LDA: |dE| "
+        f"{de:.3e} Ha (bar 1e-10), iterations {res['niter']} / {full['niter']}")
+    check(de < 1e-10 and res["niter"] == full["niter"], "10d: the trivial reduction != full zone")
+
+    res, s_sm = timed(torch, lambda: kscf_ibz_kernel(ksys, xc="lda", sigma=0.01,
+                                                     smearing_method="fermi", device="cuda"))
+    d = {k: abs(res[k] - smeared[k]) for k in ("e_free", "mu", "entropy")}
+    log(f"10d smeared IBZ KRKS LDA (Fermi-Dirac, sigma 0.01 Ha, {res['niter']} iterations, "
+        f"{s_sm:.2f} s): e_free {res['e_free']:.10f}, mu {res['mu']:.10f}, entropy "
+        f"{res['entropy']:.3e}; against 9c's full zone: |d e_free| {d['e_free']:.3e} Ha "
+        f"(bar {IBZ_MESH_BAR:g}), |d mu| {d['mu']:.3e} Ha, |d entropy| {d['entropy']:.3e}")
+    check(res["converged"] and d["e_free"] < IBZ_MESH_BAR, "10d: smeared IBZ != full zone")
+
+    t0 = time.perf_counter()
+    cpu = on_cpu(torch, ksys)
+    gaps = {"KRHF": (krhf_gap, dict(xc=None, conv_tol=1e-10), "e_tot"),
+            "KRKS LDA": (out["KRKS LDA"]["gap"], dict(xc="lda", conv_tol=1e-10), "e_tot"),
+            "smeared KRKS LDA": (res["e_free"] - smeared["e_free"],
+                                 dict(xc="lda", sigma=0.01, smearing_method="fermi"), "e_free")}
+    for label, (card, kw, key) in gaps.items():
+        host = (kscf_ibz_kernel(cpu, device="cpu", **kw)[key]
+                - kscf_kernel(cpu, device="cpu", **kw)[key])
+        diff = abs(card - host)
+        log(f"10d {label} E_IBZ - E_full: card {card:.12e}, cpu {host:.12e} Ha, |diff| "
+            f"{diff:.3e} (bar {IBZ_CPU_BAR:g})")
+        check(diff < IBZ_CPU_BAR, f"10d {label}: the card's IBZ gap != the CPU's")
+    log(f"10d the CPU's three IBZ and full-zone pairs: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_small_mp2(torch):
+    """10e: MP2, THC-MP2 and KMP2 on the Be cell of tests/test_mp2.py and a
+    2x2x2 IBZ KRHF, card against CPU. Returns K1's launches."""
+    from pyscf_isdf_tpu_torch import build_cell, lattice
+    from pyscf_isdf_tpu_torch.convert import isdf_from_numpy
+    from pyscf_isdf_tpu_torch.df import isdf as isdf_mod
+    from pyscf_isdf_tpu_torch.models import diamond_primitive
+    from pyscf_isdf_tpu_torch.mp import mp2_energy, thc_mp2_energy
+    from pyscf_isdf_tpu_torch.mp.kmp2 import kmp2_energy
+    from pyscf_isdf_tpu_torch.ops.cuda_ao import collocate
+    from pyscf_isdf_tpu_torch.scf import (
+        build_kscf_system, build_scf_system, kscf_ibz_kernel, kscf_kernel, scf_kernel,
+    )
+
+    def tight(label, e):
+        diff = abs(e["cuda"] - e["cpu"])
+        log(f"{label}: card {e['cuda']:.15e}, cpu {e['cpu']:.15e}, |diff| {diff:.3e} "
+            f"(bar 1e-12)")
+        check(diff < 1e-12, f"{label}: card != CPU")
+
+    t0 = time.perf_counter()
+    collocate.launches = 0
+    a = [[7.0, 0.0, 0.0], [5.0, 7.0, 0.0], [0.0, 0.0, 7.0]]
+    cell = build_cell(a, [["Be", (3.5, 3.5, 3.5)]], "gth-szv", pseudo="gth-pade-q2",
+                      mesh=(12, 12, 12))
+    systems = {dev: build_scf_system(cell, device=dev) for dev in ("cuda", "cpu")}
+    res = scf_kernel(systems["cpu"], xc=None, conv_tol=1e-12)
+    tight("10e Be MP2", {dev: mp2_energy(s, res, device=dev) for dev, s in systems.items()})
+    fac = isdf_mod.build_isdf(systems["cpu"].aoR, systems["cpu"].coulG, cell.mesh,
+                              cell.grid_weight, c=10)
+    facs = {"cpu": fac, "cuda": isdf_from_numpy(fac.aoRg.numpy(), fac.W.numpy(),
+                                                fac.ip_idx.numpy(), device="cuda")}
+    tight("10e Be THC-MP2 (c=10)", {dev: thc_mp2_energy(f, res["mo_coeff"], res["mo_energy"],
+                                                        1, device=dev)
+                                    for dev, f in facs.items()})
+    kpts = lattice.make_kpts(cell.a, [3, 1, 1], wrap_around=True)
+    ksystems = {dev: build_kscf_system(cell, kpts, device=dev) for dev in ("cuda", "cpu")}
+    kres = kscf_kernel(ksystems["cpu"], xc=None, conv_tol=1e-12, device="cpu")
+    tight("10e Be 3x1x1 KMP2", {dev: kmp2_energy(s, kres, device=dev)
+                                for dev, s in ksystems.items()})
+
+    dcell = diamond_primitive(mesh=(9, 9, 9))
+    dk = lattice.make_kpts(dcell.a, [2, 2, 2])
+    e, n = {}, {}
+    for dev in ("cuda", "cpu"):
+        r = kscf_ibz_kernel(build_kscf_system(dcell, dk, device=dev), xc=None,
+                            conv_tol=1e-10, device=dev)
+        check(r["converged"], f"10e IBZ KRHF on {dev} did not converge")
+        e[dev], n[dev] = r["e_tot"], r["niter"]
+    diff = abs(e["cuda"] - e["cpu"])
+    log(f"10e IBZ KRHF diamond 9^3 2x2x2 (nk_ibz 3): card {e['cuda']:.12f}, cpu "
+        f"{e['cpu']:.12f}, |diff| {diff:.3e} (bar 1e-10), iterations {n['cuda']} / {n['cpu']}")
+    check(diff < 1e-10 and n["cuda"] == n["cpu"], "10e: IBZ KRHF card != CPU")
+    log(f"10e: {time.perf_counter() - t0:.1f} s, K1 launches {collocate.launches}")
+    return collocate.launches
+
+
 def main():
     try:
         import torch
@@ -1038,13 +1315,21 @@ def main():
     log(f"phase 8: {time.perf_counter() - t8:.1f} s")
     t9 = time.perf_counter()
     spin = phase_open_shell(torch, main_path)
-    del main_path
     torch.cuda.empty_cache()
-    phase_spin_k(torch, ksys, e_cell)
-    del ksys
+    smeared = phase_spin_k(torch, ksys, e_cell)
     torch.cuda.empty_cache()
     spin["k1_small"] = phase_small_spin(torch)
     log(f"phase 9: {time.perf_counter() - t9:.1f} s")
+    t10 = time.perf_counter()
+    mp2 = phase_mp2_main(torch, main_path)
+    del main_path
+    torch.cuda.empty_cache()
+    mp2["k"] = phase_kmp2(torch, ksys)
+    mp2["ibz"] = phase_ibz(torch, ksys, smeared, mp2["k"]["krhf_gap"])
+    del ksys, smeared
+    torch.cuda.empty_cache()
+    mp2["k1_small"] = phase_small_mp2(torch)
+    log(f"phase 10: {time.perf_counter() - t10:.1f} s")
 
     kernels = [
         dict(name="ao_collocate", route="cuda",
@@ -1055,7 +1340,8 @@ def main():
              bound_by=k1["bound_by"], library_ms=None,
              certified=dict(launches=cert["k1_launches"]),
              hse06=dict(launches=rsh["launches"]["ao_collocate"]),
-             open_shell=dict(launches=spin["k1_small"])),
+             open_shell=dict(launches=spin["k1_small"]),
+             mp2=dict(launches=mp2["k1_small"])),
         dict(name="robust_k_cross", route="cuda",
              source="pyscf_isdf_tpu_torch/csrc/robust_k.cu",
              replaces="pyscf_isdf_tpu/ops/pallas_robust_k.py:41",

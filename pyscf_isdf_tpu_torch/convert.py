@@ -11,10 +11,12 @@ import torch
 
 from pyscf_isdf_tpu_torch.device import resolve_device
 from pyscf_isdf_tpu_torch.df.isdf import ISDF
+from pyscf_isdf_tpu_torch.df.isdf_k import ISDFK
 from pyscf_isdf_tpu_torch.df.isdf_q import ISDFQ
 from pyscf_isdf_tpu_torch.df.isdf_sym import SymISDF
 from pyscf_isdf_tpu_torch.scf.hf import SCFSystem
 from pyscf_isdf_tpu_torch.scf.khf import KSCFSystem
+from pyscf_isdf_tpu_torch.symm import IBZInfo, SpaceGroupOp
 
 
 def isdf_from_numpy(aoRg, W, ip_idx, Vxi=None, device=None,
@@ -101,3 +103,33 @@ def sym_from_numpy(isdfq: ISDFQ, q_list, kpts, nrep, prim_mesh, coulG_q, Mq,
                    coulG_q=np.asarray(coulG_q, dtype=np.float64),
                    Mq=_tensor(Mq, torch.complex128, isdfq.Ag.device),
                    weight=float(weight))
+
+
+def isdfk_from_numpy(Ug, Wq, qmap, ip_idx, xi=None, device=None) -> ISDFK:
+    """An :class:`ISDFK` from (nk, nip, nao) Ug, (nq, nip, nip) Wq, the
+    (nk, nk) q map, the (nip,) grid indices and, for
+    :func:`~pyscf_isdf_tpu_torch.df.isdf_k.w_phased`, the real (nip, ng)
+    interpolation vectors xi."""
+    device = resolve_device(device)
+    c128 = torch.complex128
+    return ISDFK(Ug=_tensor(Ug, c128, device), Wq=_tensor(Wq, c128, device),
+                 qmap=np.asarray(qmap, dtype=np.int64),
+                 ip_idx=_tensor(ip_idx, torch.int64, device),
+                 xi=None if xi is None else _tensor(xi, torch.float64, device))
+
+
+def ibz_from_numpy(info) -> IBZInfo:
+    """An :class:`~pyscf_isdf_tpu_torch.symm.IBZInfo` with the fields of
+    ``info`` (an IBZ reduction built elsewhere, for example by the JAX
+    reference package), as numpy arrays."""
+    ops = tuple(SpaceGroupOp(R=np.array(op.R, dtype=np.float64),
+                             t=np.array(op.t, dtype=np.float64),
+                             perm=np.array(op.perm, dtype=np.int64),
+                             W=np.array(op.W))
+                for op in info.ops)
+    return IBZInfo(kpts=np.array(info.kpts, dtype=np.float64),
+                   ibz_idx=np.array(info.ibz_idx, dtype=np.int64),
+                   weights=np.array(info.weights, dtype=np.float64),
+                   bz2ibz=np.array(info.bz2ibz, dtype=np.int64),
+                   op_idx=np.array(info.op_idx, dtype=np.int64),
+                   tr=np.array(info.tr, dtype=bool), ops=ops)

@@ -13,3 +13,15 @@ def resolve_device(device=None) -> torch.device:
                 "CUDA is not available: pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def require_device(tensor: torch.Tensor, device=None) -> torch.device:
+    """Resolve ``device`` as :func:`resolve_device` does and raise unless
+    ``tensor`` (a built system's or factorization's data) lives there."""
+    device = resolve_device(device)
+    have = tensor.device
+    if have.type != device.type or (device.index is not None
+                                    and have.index != device.index):
+        raise ValueError(f"the system lives on {have}, not on {device}: build "
+                         f"it with device={str(device)!r}")
+    return device

@@ -64,16 +64,22 @@ def make_k_kernels(cell, kpts, exxdiv=None, omega=None):
     return coulG, expmikr
 
 
-def _k_sum(aoR_k, ket, ket_dm, coulG_pairs, expmikr, mesh, weight, chunk):
+def _k_sum(aoR_k, ket, ket_dm, coulG_pairs, expmikr, mesh, weight, chunk,
+           k1_idx=None):
     """sum_k2 w conj(phase) [ifft(coulG fft(bra x ket_k2)) . ket_dm_k2] ao_k1
-    over bra rows conj(ao_k1) e^{-i(k2-k1).r} of every k1."""
+    over bra rows conj(ao_k1) e^{-i(k2-k1).r} of every band k1 (all k, or
+    the list ``k1_idx``)."""
     nk, ng, nao = aoR_k.shape
-    vk = torch.zeros((nk, nao, nao), dtype=aoR_k.dtype, device=aoR_k.device)
+    k1 = slice(None) if k1_idx is None else torch.as_tensor(list(k1_idx),
+                                                            device=aoR_k.device)
+    ao1 = aoR_k[k1]                                          # (n1, ng, nao)
+    n1 = ao1.shape[0]
+    vk = torch.zeros((n1, nao, nao), dtype=aoR_k.dtype, device=aoR_k.device)
     for k2 in range(nk):
         ketT, dmT = ket(k2), ket_dm(k2)                      # (nb, ng) each
-        phase = expmikr[k2]                                  # (nk, ng)
-        cG = coulG_pairs[k2]                                 # (nk, ng)
-        bra = (aoR_k.conj().transpose(1, 2) * phase[:, None, :]).reshape(-1, ng)
+        phase = expmikr[k2][k1]                              # (n1, ng)
+        cG = coulG_pairs[k2][k1]                             # (n1, ng)
+        bra = (ao1.conj().transpose(1, 2) * phase[:, None, :]).reshape(-1, ng)
         rows = []
         for i0 in range(0, bra.shape[0], chunk):
             blk = bra[i0:i0 + chunk]                         # (b, ng)
@@ -81,23 +87,26 @@ def _k_sum(aoR_k, ket, ket_dm, coulG_pairs, expmikr, mesh, weight, chunk):
             rho1 = blk[:, None, :] * ketT[None, :, :]        # (b, nb, ng)
             vR = ifft3(cG[kk][:, None, :] * fft3(rho1, mesh), mesh)
             rows.append((vR * dmT[None]).sum(1))
-        vR_dm = torch.cat(rows).reshape(nk, nao, ng) * phase.conj()[:, None, :]
-        vk += weight * (vR_dm @ aoR_k)
+        vR_dm = torch.cat(rows).reshape(n1, nao, ng) * phase.conj()[:, None, :]
+        vk += weight * (vR_dm @ ao1)
     return vk
 
 
 def get_k_kpts(aoR_k, dm_k, coulG_pairs, expmikr, mesh, weight,
-               chunk: int = 16):
+               chunk: int = 16, k1_idx=None):
     """Exchange matrices at all k (double k-loop pair-density FFTs).
 
     Args:
         coulG_pairs: (nk, nk, ng) kernels coulG(k2-k1) from make_k_kernels.
         expmikr: (nk, nk, ng) phases exp(-i(k2-k1).r).
         weight: (1/nk) * vol/ngrids.
+        k1_idx: optional band k-points (the exchange still sums over every
+            density k2), the IBZ driver's subset. Output order follows
+            k1_idx.
     """
     return _k_sum(aoR_k, lambda k2: aoR_k[k2].T,
                   lambda k2: dm_k[k2] @ aoR_k[k2].T.conj(),
-                  coulG_pairs, expmikr, mesh, weight, chunk)
+                  coulG_pairs, expmikr, mesh, weight, chunk, k1_idx)
 
 
 def get_k_kpts_occ(aoR_k, mo_w_k, coulG_pairs, expmikr, mesh, weight,

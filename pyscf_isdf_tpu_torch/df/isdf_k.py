@@ -241,20 +241,23 @@ def w_phased(isdfk: ISDFK, cell, q, Gshift, kpts=None, fft_chunk: int = 64):
     return cell.grid_weight * (Vxi @ (xi_c * phase[None, :]).T)
 
 
-def get_k_kpts(isdfk: ISDFK, dm_k):
+def get_k_kpts(isdfk: ISDFK, dm_k, k1_idx=None):
     """Exchange via per-q GEMMs: (1/nk) sum_k2 Ug1^H (conj(W_q) o M2) Ug1.
 
     The sum over k2 accumulates conj(M2) o W_q one pair at a time (the q
     index read on the host, so no index tensor reaches the device and the
     loop can be captured into a CUDA graph) and conjugates once: no
     (nk, n_ip, n_ip) gather of W per band k-point.
+
+    ``k1_idx``: optional band k-points (the sum still runs over every
+    density k2), the IBZ driver's subset. Output order follows k1_idx.
     """
     Ug = isdfk.Ug
     nk = Ug.shape[0]
     dm_k = dm_k.to(Ug.dtype)
     Mc = Ug.conj() @ dm_k.conj() @ Ug.transpose(1, 2)        # conj(M), (nk, nip, nip)
     out = []
-    for k1 in range(nk):
+    for k1 in (range(nk) if k1_idx is None else k1_idx):
         inner = Mc[0] * isdfk.Wq[int(isdfk.qmap[0, k1])]
         for k2 in range(1, nk):
             inner.addcmul_(Mc[k2], isdfk.Wq[int(isdfk.qmap[k2, k1])])

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from pyscf_isdf_tpu_torch.cell import build_cell
+from pyscf_isdf_tpu_torch.cell import BOHR, build_cell
 
 
 def diamond_primitive(mesh=(17, 17, 17), basis="gth-szv", pseudo="gth-pade",
@@ -19,6 +19,19 @@ def diamond_primitive(mesh=(17, 17, 17), basis="gth-szv", pseudo="gth-pade",
         basis=basis, pseudo=pseudo, mesh=mesh, ke_cutoff=ke_cutoff,
         unit="Angstrom", **kw,
     )
+
+
+def diamond_cubic(mesh=(17, 17, 17), basis="gth-szv", pseudo="gth-pade", **kw):
+    """8-atom conventional cubic diamond cell (a = 3.5668 A)."""
+    a = 3.5668
+    h = a / 4
+    frac = [
+        (0, 0, 0), (1, 1, 1), (2, 2, 0), (3, 3, 1),
+        (2, 0, 2), (3, 1, 3), (0, 2, 2), (1, 3, 3),
+    ]
+    atoms = [["C", (x * h, y * h, z * h)] for x, y, z in frac]
+    return build_cell(a=np.eye(3) * a, atom=atoms, basis=basis, pseudo=pseudo,
+                      mesh=mesh, unit="Angstrom", **kw)
 
 
 def diamond_supercell(nrep=(2, 2, 2), mesh=None, basis="gth-szv",
@@ -38,3 +51,20 @@ def diamond_supercell(nrep=(2, 2, 2), mesh=None, basis="gth-szv",
     return build_cell(a=a0 * nrep[:, None], atom=atoms, basis=basis,
                       pseudo=pseudo, mesh=mesh, ke_cutoff=ke_cutoff,
                       unit="Angstrom", **kw)
+
+
+def graphene(mesh=None, basis="gth-szv", pseudo="gth-pade", vacuum=20.0,
+             ke_cutoff=None, **kw):
+    """Graphene sheet in a 3D cell with ``vacuum`` Bohr of separation.
+
+    (3D periodic treatment with large c; the reference's 2D coulomb kernel
+    is a separate low-dimension feature.)
+    """
+    # standard hexagonal lattice: a = 2.46 A (C-C bond 1.42 A)
+    a = 2.46
+    lat = np.array([[a, 0, 0], [-a / 2, a * np.sqrt(3) / 2, 0],
+                    [0, 0, vacuum * BOHR]])
+    atoms = [["C", (0.0, 0.0, 0.0)],
+             ["C", (0.0, a / np.sqrt(3), 0.0)]]
+    return build_cell(a=lat, atom=atoms, basis=basis, pseudo=pseudo,
+                      mesh=mesh, ke_cutoff=ke_cutoff, unit="Angstrom", **kw)

@@ -4,3 +4,4 @@ from pyscf_isdf_tpu_torch.scf.khf import (  # noqa: F401
 )
 from pyscf_isdf_tpu_torch.scf.kuhf import kuhf_kernel  # noqa: F401
 from pyscf_isdf_tpu_torch.scf.uhf import uhf_kernel  # noqa: F401
+from pyscf_isdf_tpu_torch.scf.khf_ksymm import kscf_ibz_kernel  # noqa: F401

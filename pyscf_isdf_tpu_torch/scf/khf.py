@@ -15,8 +15,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pyscf_isdf_tpu_torch import symm
 from pyscf_isdf_tpu_torch.cell import Cell
-from pyscf_isdf_tpu_torch.device import resolve_device
+from pyscf_isdf_tpu_torch.device import require_device, resolve_device
 from pyscf_isdf_tpu_torch.df import fftdf_k
 from pyscf_isdf_tpu_torch.ops import coulomb, pp as pp_ops
 from pyscf_isdf_tpu_torch.ops.ao_eval import ao_gradient_fft_k, eval_ao_kpts
@@ -24,7 +25,9 @@ from pyscf_isdf_tpu_torch.ops.ft_ao import overlap_and_kinetic
 from pyscf_isdf_tpu_torch.ops.xc import XCSpec
 from pyscf_isdf_tpu_torch.scf.diis import DIIS
 from pyscf_isdf_tpu_torch.scf.hf import rsh_coeffs
-from pyscf_isdf_tpu_torch.scf.occupations import exact_count_occ, smearing_occ_rhf
+from pyscf_isdf_tpu_torch.scf.occupations import (
+    exact_count_occ, smearing_occ_ibz, smearing_occ_rhf,
+)
 from pyscf_isdf_tpu_torch.utils.timing import null_timer
 
 
@@ -164,7 +167,7 @@ def bloch_ao_gradients(system: KSCFSystem) -> torch.Tensor:
                         for k in range(len(system.kpts))])
 
 
-def exchange_engines_k(system: KSCFSystem, df, isdf_c, omega=None):
+def exchange_engines_k(system: KSCFSystem, df, isdf_c, omega=None, k1_idx=None):
     """Exchange functions ``dm_k -> K_k`` of one k-point engine: the
     full-range one and, with ``omega``, the long-range one.
 
@@ -172,6 +175,8 @@ def exchange_engines_k(system: KSCFSystem, df, isdf_c, omega=None):
     its own IP selection), 'isdf_q' the q-resolved one with robust-fit
     exchange, 'fftdf' uses the exact pair-density FFT build on the
     system's kernels (and, with ``omega``, on the long-range ones).
+    ``k1_idx`` (the IBZ driver's band k-points, 'isdf' and 'fftdf')
+    returns K at those k-points alone.
     """
     cell, aoR_k, kpts = system.cell, system.aoR_k, system.kpts
     omegas = [None] if omega is None else [None, omega]
@@ -188,7 +193,8 @@ def exchange_engines_k(system: KSCFSystem, df, isdf_c, omega=None):
 
         facs = [isdf_k_mod.build_isdf_k(cell, aoR_k, kpts, c=isdf_c, omega=w or 0.0)
                 for w in omegas]
-        return [lambda dm, f=f: isdf_k_mod.get_k_kpts(f, dm) for f in facs]
+        return [lambda dm, f=f: isdf_k_mod.get_k_kpts(f, dm, k1_idx=k1_idx)
+                for f in facs]
     kernels = [system.coulG_pairs]
     if omega is not None:
         kernels.append(torch.as_tensor(
@@ -196,7 +202,7 @@ def exchange_engines_k(system: KSCFSystem, df, isdf_c, omega=None):
             dtype=torch.float64, device=aoR_k.device))
     kweight = system.weight / len(kpts)
     return [lambda dm, cp=cp: fftdf_k.get_k_kpts(aoR_k, dm, cp, system.expmikr,
-                                                 system.mesh, kweight)
+                                                 system.mesh, kweight, k1_idx=k1_idx)
             for cp in kernels]
 
 
@@ -215,18 +221,38 @@ def _eig_all(F, X):
     return es, cs
 
 
-def _check_device(system: KSCFSystem, device: torch.device) -> None:
-    """Raise unless ``system`` was built on ``device``."""
-    have = system.aoR_k.device
-    if have.type != device.type or (device.index is not None
-                                    and have.index != device.index):
-        raise ValueError(f"the system lives on {have}, not on {device}: "
-                         f"build it with build_kscf_system(..., device={str(device)!r})")
-
-
 def _trace(a, b) -> float:
     """Re sum_k tr(a_k b_k)."""
     return float(torch.einsum("kij,kji->", a, b).real)
+
+
+def _weighted_occ(mo_e_k, weights, nelec_tot):
+    """Fermi filling across weighted IBZ k-points (2 electrons/orbital).
+
+    Exact-count fill in sorted order (a <=fermi threshold overfills on
+    a degenerate Fermi level — same guard as occupations.
+    exact_count_occ; argsort tie-breaking is deterministic)."""
+    e_all = np.hstack(mo_e_k)
+    w_all = np.hstack([np.full(len(e), w) for e, w in zip(mo_e_k, weights)])
+    order = np.argsort(e_all, kind="stable")
+    cum = np.cumsum(2 * w_all[order])
+    nfill = int(np.searchsorted(cum, nelec_tot - 1e-9)) + 1
+    if abs(cum[nfill - 1] - nelec_tot) > 1e-9:
+        # the last orbital's IBZ weight overshoots the remaining electron
+        # count: a metal/fractional filling this integer-fill driver cannot
+        # represent
+        raise ValueError(
+            f"IBZ integer filling impossible: cumulative weighted "
+            f"occupancy jumps {cum[nfill - 2] if nfill > 1 else 0.0} -> "
+            f"{cum[nfill - 1]} across nelec_tot={nelec_tot}; use the "
+            f"full-BZ driver or smearing")
+    mask = np.zeros(e_all.size)
+    mask[order[:nfill]] = 2.0
+    out, off = [], 0
+    for e in mo_e_k:
+        out.append(mask[off:off + len(e)])
+        off += len(e)
+    return out
 
 
 def kscf_kernel(
@@ -246,6 +272,7 @@ def kscf_kernel(
     xc_grids: str = "uniform",
     device=None,
     timer=None,
+    ibz: Optional[symm.IBZInfo] = None,
 ):
     """Run the k-point SCF to convergence on ``device`` (default: the GPU),
     where ``system`` must have been built. xc=None -> KRHF, else KRKS ('hf'
@@ -268,6 +295,13 @@ def kscf_kernel(
     ``timer`` (a :class:`~pyscf_isdf_tpu_torch.utils.timing.StageTimer`)
     records each iteration as 'cycle'.
 
+    ``ibz`` (an :class:`~pyscf_isdf_tpu_torch.symm.IBZInfo` of
+    ``system.kpts``) carries the iteration state at its irreducible
+    k-points with their integer weights: the density is expanded to the
+    full zone once a cycle for J, Vxc and the exchange sum, whose band
+    loop runs over the irreducible k-points alone ('fftdf' and 'isdf';
+    see :func:`~pyscf_isdf_tpu_torch.scf.khf_ksymm.kscf_ibz_kernel`).
+
     DFT+U (``hubbard``), Becke grids, the gdf/aegdf engines and
     ``isdf_precision='dd'`` are not ported yet and raise
     ``NotImplementedError``.
@@ -275,7 +309,8 @@ def kscf_kernel(
     Returns a dict with e_tot, mo_energy, mo_coeff (per-k tensor lists),
     mo_occ (per-k numpy arrays), dm (nk, nao, nao), converged, niter,
     entropy, mu and e_free = e_tot - sigma * entropy (0, None and e_tot
-    without smearing).
+    without smearing). With ``ibz`` the per-k entries are at its
+    irreducible k-points, and dm_full (nk, nao, nao) and ibz are added.
     """
     if isdf_precision is not None:
         raise NotImplementedError(f"isdf_precision={isdf_precision!r}: the "
@@ -289,8 +324,10 @@ def kscf_kernel(
             raise NotImplementedError(f"df engine {df!r}")
         raise ValueError(f"unknown df engine {df!r}: use 'fftdf', 'isdf' "
                          "or 'isdf_q'")
-    device = resolve_device(device)
-    _check_device(system, device)
+    if ibz is not None and df == "isdf_q":
+        raise ValueError("df='isdf_q' has no band subset for the IBZ: use "
+                         "'fftdf' or 'isdf'")
+    device = require_device(system.aoR_k, device)
     timer = timer or null_timer
     cell = system.cell
     nk = len(system.kpts)
@@ -316,18 +353,48 @@ def kscf_kernel(
 
     if exxdiv not in (None, "ewald"):
         raise NotImplementedError(f"exxdiv={exxdiv!r} with k-points")
+    # the IBZ reduction as data: the band rows the state lives on, their
+    # weights and the expansion to the full zone (identity without ibz)
+    if ibz is None:
+        band_idx, w_band = None, None
+
+        def expand(dm):
+            return dm
+
+        def at_bands(a):
+            return a
+    else:
+        band_idx = [int(i) for i in ibz.ibz_idx]
+        band_t = torch.as_tensor(band_idx, device=device)
+        w_host = np.asarray(ibz.weights, dtype=np.float64)
+        w_band = torch.as_tensor(w_host, dtype=torch.float64, device=device)
+        P = symm._rotation_table(cell, ibz, device)
+
+        def expand(dm):
+            return symm.expand_dm(cell, ibz, dm, P=P)
+
+        def at_bands(a):
+            return a[band_t]
+
+    def trace(a, b) -> float:
+        """The weighted, 1/nk-normalised Re sum_k tr(a_k b_k)."""
+        if w_band is None:
+            return _trace(a, b) / nk
+        return float(torch.einsum("k,kij,kji->", w_band.to(a.dtype), a, b).real) / nk
+
     get_k_fn = None
     if need_k:
-        fns = exchange_engines_k(system, df, isdf_c, omega if rsh else None)
+        fns = exchange_engines_k(system, df, isdf_c, omega if rsh else None,
+                                 k1_idx=band_idx)
         if rsh:
             def get_k_fn(dm):
                 return hyb * fns[0](dm) + (alpha - hyb) * fns[1](dm)
         else:
             get_k_fn = fns[0]
-    occ_k_capable = df == "fftdf" and not rsh
+    occ_k_capable = df == "fftdf" and not rsh and ibz is None
 
     def get_jk(dm, with_k, C_w_k=None):
-        vj = fftdf_k.get_j_kpts(aoR_k, dm, system.coulG, mesh, weight)
+        vj = at_bands(fftdf_k.get_j_kpts(aoR_k, dm, system.coulG, mesh, weight))
         if not with_k:
             return vj, None
         if C_w_k is not None and occ_k_capable:
@@ -340,7 +407,8 @@ def kscf_kernel(
             vk = get_k_fn(dm)
         return vj, vk
 
-    S, hcore, X = system.S, system.hcore, system.X
+    S, hcore = at_bands(system.S), at_bands(system.hcore)
+    X = system.X if ibz is None else tuple(system.X[k] for k in band_idx)
 
     smeared = sigma > 0
     entropy, mu = 0.0, None
@@ -350,10 +418,16 @@ def kscf_kernel(
         flat = torch.cat(mo_e).cpu().numpy()
         e_host = np.split(flat, np.cumsum([len(e) for e in mo_e])[:-1])
         if smeared:
-            occs, entropy, mu = smearing_occ_rhf(e_host, system.nelec_tot, sigma,
-                                                 smearing_method)
+            if ibz is None:
+                occs, entropy, mu = smearing_occ_rhf(e_host, system.nelec_tot, sigma,
+                                                     smearing_method)
+            else:
+                occs, entropy, mu = smearing_occ_ibz(e_host, w_host, system.nelec_tot,
+                                                     sigma, smearing_method)
             return occs
-        return exact_count_occ(e_host, nocc_tot, scale=2.0)
+        if ibz is None:
+            return exact_count_occ(e_host, nocc_tot, scale=2.0)
+        return _weighted_occ(e_host, w_host, system.nelec_tot)
 
     def make_dm(mo_c, occs):
         return torch.stack([
@@ -370,18 +444,19 @@ def kscf_kernel(
     C_w_k = None
     for it in range(max_cycle):
         with timer("cycle"):
-            vj, vk = get_jk(dm, need_k, C_w_k)
+            dm_full = expand(dm)
+            vj, vk = get_jk(dm_full, need_k, C_w_k)
             veff = vj.clone()
             e_xc = 0.0
             if is_dft:
-                e_xc, vxc = vxc_kpts(aoR_k, ao_grad_k, dm, weight, xcspec)
-                veff = veff + vxc
+                e_xc, vxc = vxc_kpts(aoR_k, ao_grad_k, dm_full, weight, xcspec)
+                veff = veff + at_bands(vxc)
             e_k = 0.0
             if need_k:
                 if exxdiv == "ewald":
                     vk = vk + mad_add * (S @ dm @ S)
                 veff = veff - 0.5 * k_scale * vk
-                e_k = -0.25 * k_scale * _trace(dm, vk) / nk
+                e_k = -0.25 * k_scale * trace(dm, vk)
 
             F = hcore + veff
             sds = S @ dm @ F - F @ dm @ S
@@ -402,8 +477,8 @@ def kscf_kernel(
                                                 device=device)
                     for c, o in zip(mo_c, occs)])
 
-            e1 = _trace(dm, hcore) / nk
-            ecoul = 0.5 * _trace(dm, vj) / nk
+            e1 = trace(dm, hcore)
+            ecoul = 0.5 * trace(dm, vj)
             e_tot = float(e1 + ecoul + e_xc + e_k + system.e_nuc)
             de = abs(e_tot - e_last)
             err_norm = float(torch.linalg.norm(err)) / max(1, err.numel()) ** 0.5
@@ -416,7 +491,7 @@ def kscf_kernel(
             dm = dm_new
             e_last = e_tot
 
-    return {
+    out = {
         "e_tot": e_tot,
         "mo_energy": mo_e,
         "mo_coeff": mo_c,
@@ -428,3 +503,6 @@ def kscf_kernel(
         "mu": mu,
         "e_free": e_tot - sigma * entropy if smeared else e_tot,
     }
+    if ibz is not None:
+        out.update(dm_full=expand(dm), ibz=ibz)
+    return out

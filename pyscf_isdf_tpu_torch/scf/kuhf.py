@@ -15,14 +15,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pyscf_isdf_tpu_torch.device import resolve_device
+from pyscf_isdf_tpu_torch.device import require_device
 from pyscf_isdf_tpu_torch.df import fftdf_k
 from pyscf_isdf_tpu_torch.ops import coulomb
 from pyscf_isdf_tpu_torch.ops.xc import XCSpec
 from pyscf_isdf_tpu_torch.scf.diis import DIIS
 from pyscf_isdf_tpu_torch.scf.hf import rsh_coeffs
 from pyscf_isdf_tpu_torch.scf.khf import (
-    KSCFSystem, _check_device, _eig_all, _trace, bloch_ao_gradients,
+    KSCFSystem, _eig_all, _trace, bloch_ao_gradients,
     exchange_engines_k,
 )
 from pyscf_isdf_tpu_torch.scf.occupations import exact_count_occ
@@ -118,8 +118,7 @@ def kuhf_kernel(
         raise ValueError(f"unknown df engine {df!r}: use 'fftdf' or 'isdf'")
     if exxdiv not in (None, "ewald"):
         raise NotImplementedError(f"exxdiv={exxdiv!r} with k-points")
-    device = resolve_device(device)
-    _check_device(system, device)
+    device = require_device(system.aoR_k, device)
     cell = system.cell
     nk = len(system.kpts)
     xcspec = XCSpec(xc) if xc is not None else None

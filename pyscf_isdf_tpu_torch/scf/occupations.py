@@ -108,3 +108,46 @@ def exact_count_occ(mo_e_k, n_fill, scale=1.0):
         out.append(occ_flat[i0:i0 + e.size])
         i0 += e.size
     return out
+
+
+def smearing_occ_ibz(mo_e_k, weights, nelec_tot, sigma, method="fermi"):
+    """Closed-shell smeared occupations over a WEIGHTED (IBZ) spectrum.
+
+    The chemical potential solves the weighted charge-neutrality
+    condition sum_k w_k * 2 f((e_k - mu)/sigma) == nelec_tot, where
+    ``weights`` are the IBZ multiplicities (sum_k w_k == nk of the full
+    BZ) — the symmetry-reduced form of smearing_occ_rhf (reference
+    pyscf/pbc/scf/addons.py smearing over kpts.weights_ibz).
+
+    Returns (occ list of (nmo,) in [0,2], entropy, mu) with entropy in
+    the same per-unit-cell x2 convention as smearing_occ_rhf.
+    """
+    f_occ = fermi_occ if method == "fermi" else gaussian_occ
+    w = np.asarray(weights, dtype=np.float64)
+    nk = float(w.sum())
+    es = [np.asarray(e, np.float64) for e in mo_e_k]
+    mo_es = np.hstack(es)
+    w_all = np.hstack([np.full(e.size, wk) for e, wk in zip(es, w)])
+    target = nelec_tot / 2.0
+
+    lo = mo_es.min() - 50 * sigma
+    hi = mo_es.max() + 50 * sigma
+    for _ in range(200):
+        mid = 0.5 * (lo + hi)
+        if (w_all * f_occ(mid, mo_es, sigma)).sum() < target:
+            lo = mid
+        else:
+            hi = mid
+    mu = 0.5 * (lo + hi)
+    occs = f_occ(mu, mo_es, sigma)
+    if method == "fermi":
+        f = np.clip(occs, 1e-300, 1 - 1e-16)
+        s_orb = -(f * np.log(f) + (1 - f) * np.log1p(-f))
+        s_orb[(occs <= 0) | (occs >= 1)] = 0.0
+    else:
+        s_orb = np.exp(-(((mo_es - mu) / sigma) ** 2)) / (2 * np.sqrt(np.pi))
+    entropy = float((w_all * s_orb).sum()) / nk * 2
+    occs = occs * 2
+    sizes = np.cumsum([0] + [e.size for e in es])
+    return ([occs[sizes[i]:sizes[i + 1]] for i in range(len(es))], entropy,
+            float(mu))

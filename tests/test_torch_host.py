@@ -74,12 +74,13 @@ def test_ewald_madelung_dzvp_cell():
 K_MODULES = ("kpts_helper", "k2gamma", "convert", "scf.khf", "scf.occupations",
              "df.fftdf_k", "df.isdf_k", "df.isdf_q", "df.isdf_sym",
              "scf.jit_diis", "scf.jit_driver", "ops.xc_mgga", "scf.uhf",
-             "scf.kuhf")
+             "scf.kuhf", "symm", "scf.khf_ksymm", "df.fft_ao2mo", "mp.mp2", "mp.thc",
+             "mp.kmp2")
 
 
 def test_port_imports_no_jax():
     """Importing every port module, the k-point ones, the graph drivers, the
-    meta-GGAs and the open-shell drivers named, leaves jax and the JAX package out of sys.modules
+    meta-GGAs, the open-shell drivers, the IBZ SCF and MP2 named, leaves jax and the JAX package out of sys.modules
     (a subprocess: this test process has imported jax)."""
     code = (
         "import importlib, pkgutil, sys\n"

@@ -79,3 +79,31 @@ def test_unported_options_raise(systems):
         scf_kernel(port_sys, xc="hse06", xc_grids="becke")
     with pytest.raises(NotImplementedError):
         scf_kernel(port_sys, xc="pbe0", df="isdf", isdf_precision="dd")
+
+
+@pytest.mark.parametrize("name", ["graphene", "diamond_cubic"])
+def test_model_cells_match_reference(name):
+    """The port's graphene (BASELINE config 2) and cubic diamond cells are
+    the reference's: lattice, coordinates, species and AO count."""
+    from pyscf_isdf_tpu import models as ref_models
+    from pyscf_isdf_tpu_torch import models
+
+    mesh = (15, 15, 48) if name == "graphene" else (12, 12, 12)
+    cell, ref = getattr(models, name)(mesh=mesh), getattr(ref_models, name)(mesh=mesh)
+    assert np.abs(cell.a - ref.a).max() < 1e-14
+    assert np.abs(cell.coords - ref.coords).max() < 1e-14
+    assert tuple(cell.symbols) == tuple(ref.symbols) and cell.nao == ref.nao
+    assert cell.nao == (8 if name == "graphene" else 32)
+
+
+def test_graphene_pbe0_isdf_vs_fftdf():
+    """BASELINE config 2 (tests/test_graphene.py): on the reference's mesh
+    the ISDF exchange (c=8) reproduces the FFTDF one inside the converged
+    PBE0 SCF to 1e-7 Ha."""
+    from pyscf_isdf_tpu_torch.models import graphene
+
+    system = build_scf_system(graphene(mesh=(15, 15, 48)), device="cpu")
+    ref = scf_kernel(system, xc="pbe0", conv_tol=1e-9)
+    out = scf_kernel(system, xc="pbe0", df="isdf", isdf_c=8, conv_tol=1e-9)
+    assert ref["converged"] and out["converged"]
+    assert abs(out["e_tot"] - ref["e_tot"]) < 1e-7
