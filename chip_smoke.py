@@ -97,7 +97,35 @@ run from the root of a checkout. Phases, each of which fails the script:
      pair), KRKS LDA and the smeared LDA against the CPU's on a copy of
      the same system (IBZ_CPU_BAR); (e) card against CPU: MP2, THC-MP2 and KMP2
      on the Be cell of tests/test_mp2.py (1e-12 Ha, the same orbitals on
-     both), and a 2x2x2 IBZ KRHF (1e-10 Ha, equal iteration counts).
+     both), and a 2x2x2 IBZ KRHF (1e-10 Ha, equal iteration counts);
+ 11. the remaining mean-field drivers and the band structure, with K1's
+     and K2's launches counted from 0 over the phase and each sub-phase's
+     seconds and peak device memory printed: (a) on phase 5's
+     system, rohf_kernel(xc='pbe0', nelec=(109, 107), df='isdf',
+     isdf_c=16, conv_tol=1e-8) then uhf_kernel with the same arguments
+     from the ROKS density (both converged in 100 iterations, 0 <= E_ROKS
+     - E_UKS < 1e-2 Ha) and, printed only, from the core guess, each with
+     its median per-iteration stage ms and peak memory; (b) on
+     phase 7's k-system, closed-shell KROKS LDA (fftdf) against phase 7's
+     KRKS and KROKS PBE0/isdf c=10 against 10d's full-zone KRKS (1e-8
+     Ha); (c) closed-shell KGHF (fftdf) against 10c's KRHF (1e-8 Ha), and
+     KGHF isdf c=10 against fftdf from one non-collinear start
+     (KGHF_ISDF_BAR); (d) DFT+U: U = 0 against phase 7 (1e-10 Ha), the
+     Hellmann-Feynman slope at dU = 1e-4 against E_U(U=1) (1e-3
+     relative), U = 0.1 Ha raising E by less than 0.5 Ha; (e) get_bands at
+     the SCF k-points against phase 7's KRKS eigenvalues and a 1e-12 KRHF's
+     (1e-8 Ha; 10c's 1e-10 KRHF printed), then KRHF bands along
+     L-Gamma-X-Gamma with the direct and indirect gaps; (f) cDFT LDA on
+     phase 5's system, atom 0's population lowered by 0.05 e (1e-6 e,
+     lam > 0, E above the unconstrained), and the Mulliken charges of
+     phase 5's PBE0 density (sum 0 to 1e-8); (g) staggered-mesh KMP2
+     (non-SCF bands with 'vcut_sph') on 10c's KRHF, and the H2 2x2x2
+     goldens of tests/test_kmp2_stagger.py (2e-6 Ha); (h) card against
+     CPU on the reference tests' small cells (1e-10 Ha, equal iteration
+     counts): ROHF/ROKS, KROHF, KGHF (collinear and odd count), DFT+U,
+     cDFT (each device's multiplier meets the target to 1e-6, and the SCF
+     at the card's multiplier is held), hybrid and range-separated
+     bands, and the submesh stagger.
 
 It prints the kernels' JSON summary and, as its last line,
 {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -570,7 +598,7 @@ def phase_certified(torch):
         f"{k}={sum(v):.3f}" for k, v in ktimer.seconds.items()))
     del fac, aoR, B
     torch.cuda.empty_cache()
-    return k2, ksys, res["e_tot"]
+    return k2, ksys, res
 
 
 def graph_line(label, stats, host_timer, niter_host):
@@ -871,6 +899,7 @@ def phase_open_shell(torch, main):
           f"9b: K2 launched {launches['robust_k_cross']} times in {trip['niter']} iterations")
     out["k2"] += launches["robust_k_cross"]
     out["triplet"] = dict(launches=launches["robust_k_cross"], niter=trip["niter"])
+    out["triplet_ms"] = median_ms(timer)
     del trip, fac
     return out
 
@@ -1014,12 +1043,15 @@ IBZ_MESH_BAR = 1e-5
 IBZ_CPU_BAR = 1e-9
 
 
-def timed(torch, fn):
-    """fn() and its seconds, the card synchronised around it."""
-    torch.cuda.synchronize()
+def timed(torch, fn, dev="cuda"):
+    """fn() and its seconds, the device synchronised around it."""
+    def sync():
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+    sync()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync()
     return out, time.perf_counter() - t0
 
 
@@ -1128,7 +1160,7 @@ def phase_kmp2(torch, ksys):
         f"(bar 1e-6)")
     check(ibz["converged"] and d_s < 1e-6, "10c: kmp2_ksymm != KMP2")
     return dict(e_kmp2=e_k, kmp2_s=s_k, thc_err=d_thc, thc_s=s_t,
-                krhf_gap=ibz["e_tot"] - krhf["e_tot"])
+                krhf_gap=ibz["e_tot"] - krhf["e_tot"], krhf=krhf)
 
 
 def phase_ibz(torch, ksys, smeared, krhf_gap):
@@ -1158,7 +1190,8 @@ def phase_ibz(torch, ksys, smeared, krhf_gap):
             f"symmetry breaking)")
         check(ibz["converged"] and full["converged"], f"10d {label}: an SCF did not converge")
         check(de < IBZ_MESH_BAR, f"10d {label}: |E_IBZ - E_full| {de:.3e} Ha")
-        out[label] = dict(ms_ibz=mi, ms_full=mf, de=de, gap=ibz["e_tot"] - full["e_tot"])
+        out[label] = dict(ms_ibz=mi, ms_full=mf, de=de, gap=ibz["e_tot"] - full["e_tot"],
+                          e_full=full["e_tot"])
 
     nk, natm = len(ksys.kpts), ksys.cell.natm
     identity = symm.SpaceGroupOp(R=np.eye(3), t=np.zeros(3), perm=np.arange(natm),
@@ -1256,6 +1289,394 @@ def phase_small_mp2(torch):
     return collocate.launches
 
 
+# phase 11: the remaining mean-field drivers and the band structure. Its
+# functions take the device (``dev``), so tools/slice8_rehearsal.py runs the
+# same code on the CPU on smaller systems.
+KGHF_ISDF_BAR = 5e-7      # KGHF isdf c=10 against fftdf from one start (the
+                          # reference test's bar; CPU rehearsal in PERF.md)
+
+
+def peak_gb(torch, dev):
+    """Peak device memory (GB) since the last reset; nan off the card."""
+    if torch.device(dev).type != "cuda":
+        return float("nan")
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def reset_peak(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def median_ms(timer, keys=("cycle", "J", "K", "XC", "eigh")):
+    s = timer.seconds
+    return {k: 1e3 * statistics.median(s[k]) for k in keys if k in s}
+
+
+def phase_roks_main(torch, main, open_shell_ms, dev="cuda"):
+    """11a: ROKS PBE0 on plain ISDF c=16 at the main width, then UKS with
+    the same arguments on the same system, started from the ROKS density:
+    ROKS is constrained UKS. From the core guess this UKS did not
+    converge in 100 iterations on the card (its fillings hop among the
+    degenerate HOMO orbitals, PERF.md); that run is repeated and printed,
+    not held."""
+    from pyscf_isdf_tpu_torch.scf import rohf_kernel, uhf_kernel
+    from pyscf_isdf_tpu_torch.utils.timing import StageTimer
+
+    system = main["system"]
+    nocc = system.nelec // 2
+    kw = dict(xc="pbe0", nelec=(nocc + 1, nocc - 1), df="isdf", isdf_c=16, conv_tol=1e-8)
+    out = {}
+    dm_ro = None
+    for label, fn, extra in (("ROKS", rohf_kernel, dict(device=dev)),
+                             ("UKS from the ROKS density", uhf_kernel, None),
+                             ("UKS from the core guess (not held)", uhf_kernel,
+                              dict(verbose=True))):
+        if extra is None:
+            extra = dict(dm0=dm_ro)
+        timer = StageTimer(dev)
+        reset_peak(torch, dev)
+        res, secs = timed(torch, lambda: fn(system, timer=timer, **kw, **extra), dev)
+        ms = median_ms(timer)
+        log(f"11a {label} PBE0/isdf c=16 nelec {kw['nelec']}: e_tot {res['e_tot']:.10f}, "
+            f"{res['niter']} iterations (converged={res['converged']}), {secs:.2f} s, peak "
+            f"device memory {peak_gb(torch, dev):.2f} GB; median ms an iteration: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+            + f"; ISDF build {sum(timer.seconds.get('isdf_select', [0])):.2f} s select")
+        if "not held" not in label:
+            check(res["converged"], f"11a: {label} did not converge in 100 iterations")
+        out[label] = dict(e=res["e_tot"], niter=res["niter"], s=secs, ms=ms)
+        dm_ro = res["dm"]
+        del res
+    gap = out["ROKS"]["e"] - out["UKS from the ROKS density"]["e"]
+    log(f"11a E_ROKS - E_UKS {gap:.6e} Ha (bar [0, 1e-2)); 9b's open-shell UKS on the "
+        "robust fit, median ms an iteration: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in open_shell_ms.items()))
+    check(0.0 <= gap < 1e-2, f"11a: E_ROKS - E_UKS = {gap:.3e} Ha outside [0, 1e-2)")
+    return out
+
+
+def phase_krohf(torch, ksys, e_cell, e_pbe0, ms_pbe0, dev="cuda"):
+    """11b: closed-shell KROKS on phase 7's k-system: LDA (fftdf) against
+    phase 7's KRKS, PBE0/isdf c=10 against 10d's full-zone KRKS."""
+    from pyscf_isdf_tpu_torch.scf import krohf_kernel
+    from pyscf_isdf_tpu_torch.utils.timing import StageTimer
+
+    out = {}
+    for label, kw, e_ref, ref_name in (
+            ("LDA (fftdf)", dict(xc="lda,vwn"), e_cell, "phase 7 KRKS"),
+            ("PBE0/isdf c=10", dict(xc="pbe0", df="isdf", isdf_c=10), e_pbe0,
+             "10d full-zone KRKS")):
+        timer = StageTimer(dev)
+        res, secs = timed(torch, lambda: krohf_kernel(ksys, conv_tol=1e-10, device=dev,
+                                                      timer=timer, **kw), dev)
+        diff = abs(res["e_tot"] - e_ref)
+        ms = median_ms(timer)["cycle"]
+        log(f"11b closed-shell KROKS {label}: E/cell {res['e_tot']:.10f} ({res['niter']} "
+            f"iterations, {secs:.2f} s, median {ms:.2f} ms an iteration), {ref_name} "
+            f"{e_ref:.10f}, |diff| {diff:.3e} (bar 1e-8)"
+            + (f"; 10d's KRKS iteration {ms_pbe0:.2f} ms" if ms_pbe0 and "PBE0" in label else ""))
+        check(res["converged"] and diff < 1e-8, f"11b: KROKS {label} != {ref_name}")
+        out[label] = dict(niter=res["niter"], ms=ms, diff=diff)
+    return out
+
+
+def phase_kghf(torch, ksys, e_krhf, dev="cuda"):
+    """11c: KGHF on phase 7's k-system: the closed shell against 10c's KRHF
+    (fftdf), then isdf c=10 against fftdf from one non-collinear start."""
+    import numpy as np
+
+    from pyscf_isdf_tpu_torch.scf import kghf_kernel, kuhf_kernel
+    from pyscf_isdf_tpu_torch.scf.kghf import _spinor
+    from pyscf_isdf_tpu_torch.utils.timing import StageTimer
+
+    timer = StageTimer(dev)
+    res, secs = timed(torch, lambda: kghf_kernel(ksys, conv_tol=1e-10, device=dev,
+                                                 timer=timer), dev)
+    diff = abs(res["e_tot"] - e_krhf)
+    log(f"11c closed-shell KGHF (fftdf): E/cell {res['e_tot']:.10f} ({res['niter']} "
+        f"iterations, {secs:.2f} s; median ms a cycle {median_ms(timer)['cycle']:.2f}, of "
+        f"it the four K blocks {median_ms(timer)['K']:.2f}), 10c KRHF {e_krhf:.10f}, |diff| "
+        f"{diff:.3e} (bar 1e-8), spin {tuple(f'{s:.1e}' for s in res['spin'])}")
+    check(res["converged"] and diff < 1e-8, "11c: closed-shell KGHF != KRHF")
+
+    # a non-collinear start: a (5, 3) KUHF density two cycles in, its spin
+    # axis turned by 0.7 rad about y (fills the off-diagonal blocks)
+    u = kuhf_kernel(ksys, nelec=(5, 3), df="isdf", isdf_c=10, max_cycle=2, device=dev)
+    nk, nao = u["dm"][0].shape[:2]
+    dm0 = torch.zeros((nk, 2 * nao, 2 * nao), dtype=torch.complex128, device=dev)
+    dm0[:, :nao, :nao], dm0[:, nao:, nao:] = u["dm"]
+    c, s = math.cos(0.35), math.sin(0.35)
+    U = torch.as_tensor(np.kron([[c, -s], [s, c]], np.eye(nao)), dtype=torch.complex128,
+                        device=dev)
+    dm0 = U @ dm0 @ U.conj().T
+    dS = dm0 @ _spinor(ksys.S)
+    sx0 = float(torch.diagonal(dS[:, :nao, nao:] + dS[:, nao:, :nao], dim1=1,
+                               dim2=2).sum().real) / (2 * nk)
+    log(f"11c non-collinear start: a (5, 3) KUHF density two cycles in, turned by 0.7 rad "
+        f"about y: <Sx> {sx0:.6f} per cell")
+    check(abs(sx0) > 0.1, "11c: the start has no off-diagonal spin blocks")
+    out = {}
+    for df in ("fftdf", "isdf"):
+        timer = StageTimer(dev)
+        r, secs = timed(torch, lambda: kghf_kernel(ksys, dm0=dm0, df=df, isdf_c=10,
+                                                   conv_tol=1e-10, device=dev,
+                                                   timer=timer), dev)
+        ms = median_ms(timer)
+        log(f"11c KGHF {df} from the non-collinear start: E/cell {r['e_tot']:.10f} "
+            f"({r['niter']} iterations, converged={r['converged']}, {secs:.2f} s; median ms "
+            f"a cycle {ms['cycle']:.2f}, the four K blocks {ms['K']:.2f}); (Sx, Sy, Sz) "
+            f"{tuple(round(x, 9) for x in r['spin'])}")
+        check(r["converged"], f"11c: KGHF {df} did not converge")
+        out[df] = dict(e=r["e_tot"], niter=r["niter"], ms=ms, spin=r["spin"])
+    diff = abs(out["isdf"]["e"] - out["fftdf"]["e"])
+    log(f"11c KGHF |E_isdf - E_fftdf| {diff:.3e} Ha (bar {KGHF_ISDF_BAR:g})")
+    check(diff < KGHF_ISDF_BAR, f"11c: KGHF isdf misses fftdf by {diff:.3e} Ha")
+    return out
+
+
+def phase_dftu(torch, ksys, e_cell, dev="cuda"):
+    """11d: DFT+U (LDA, carbon p shell) on phase 7's k-system."""
+    from pyscf_isdf_tpu_torch.scf import kscf_kernel
+    from pyscf_isdf_tpu_torch.scf.dftu import HubbardU
+
+    def run(U, tol=1e-10):
+        return timed(torch, lambda: kscf_kernel(
+            ksys, xc="lda,vwn", conv_tol=tol, hubbard=[("C", 1, U)] if U is not None else None,
+            device=dev), dev)
+
+    zero, s0 = run(0.0)
+    d0 = abs(zero["e_tot"] - e_cell)
+    log(f"11d U = 0: E/cell {zero['e_tot']:.12f} ({zero['niter']} iterations, {s0:.2f} s), "
+        f"phase 7 {e_cell:.12f}, |diff| {d0:.3e} (bar 1e-10)")
+    check(zero["converged"] and d0 < 1e-10, "11d: U = 0 != phase 7")
+    plain, _ = run(None, 1e-11)
+    small, s1 = run(1e-4, 1e-11)
+    e1 = HubbardU(ksys.cell, ksys.S, [("C", 1, 1.0)]).energy_and_potential(plain["dm"])[0]
+    slope = (small["e_tot"] - plain["e_tot"]) / 1e-4
+    rel = abs(slope - e1) / abs(e1)
+    log(f"11d Hellmann-Feynman: (E(U=1e-4) - E(0)) / 1e-4 = {slope:.8f} Ha, E_U(U=1) at the "
+        f"U=0 density {e1:.8f} Ha, relative {rel:.3e} (bar 1e-3; {s1:.2f} s)")
+    check(small["converged"] and rel < 1e-3, "11d: the Hellmann-Feynman slope misses E_U")
+    u01, s2 = run(0.1)
+    rise = u01["e_tot"] - plain["e_tot"]
+    log(f"11d U = 0.1 Ha: E/cell {u01['e_tot']:.10f} ({u01['niter']} iterations, {s2:.2f} s), "
+        f"rise {rise:.6f} Ha (bar (0, 0.5))")
+    check(u01["converged"] and 0.0 < rise < 0.5, "11d: U = 0.1 Ha rise outside (0, 0.5)")
+    return dict(slope_rel=rel, rise=rise)
+
+
+def phase_bands(torch, ksys, krks, krhf, dev="cuda"):
+    """11e: get_bands on phase 7's k-system at the SCF k-points (LDA from
+    phase 7's density; HF through get_k_band from a KRHF converged to
+    1e-12, 10c's at 1e-10 printed beside it), then the KRHF band structure
+    along L-Gamma-X-Gamma."""
+    from pyscf_isdf_tpu_torch.scf import analysis, get_bands, kscf_kernel
+
+    nk = len(ksys.kpts)
+    tight, s_tight = timed(torch, lambda: kscf_kernel(ksys, xc=None, conv_tol=1e-12,
+                                                      device=dev), dev)
+    log(f"11e KRHF to conv_tol 1e-12: E/cell {tight['e_tot']:.12f} ({tight['niter']} "
+        f"iterations, {s_tight:.2f} s), 10c's (1e-10) {krhf['e_tot']:.12f}")
+    for label, res, xc, bar in (("phase 7 KRKS LDA", krks, "lda,vwn", 1e-8),
+                                ("10c KRHF", krhf, None, None),
+                                ("KRHF at 1e-12", tight, None, 1e-8)):
+        (es, _), secs = timed(torch, lambda: get_bands(ksys, res, ksys.kpts, xc=xc,
+                                                       device=dev), dev)
+        diff = float((es - torch.stack(res["mo_energy"])).abs().max())
+        log(f"11e bands at the {nk} SCF k-points from the {label} density: max |e_band - "
+            f"e_SCF| {diff:.3e} Ha (" + (f"bar {bar:g}" if bar else "printed: the SCF's "
+                                          "last eigenvalues belong to the density before "
+                                          "its last step") + f"), {secs:.2f} s")
+        check(bar is None or diff < bar,
+              f"11e: bands at the SCF k-points != the {label} eigenvalues")
+    kpath, _, _ = analysis.band_path(ksys.cell, "LGXG", npoints=50)
+    (es, _), secs = timed(torch, lambda: get_bands(ksys, tight, kpath, device=dev), dev)
+    nocc = ksys.cell.nelectron // 2
+    _, _, indirect = analysis.homo_lumo_gap(es, nocc * len(kpath))
+    direct = float((es[:, nocc] - es[:, nocc - 1]).min())
+    log(f"11e KRHF bands along LGXG ({len(kpath)} band k-points): {secs:.2f} s, "
+        f"{1e3 * secs / len(kpath):.2f} ms a band k-point; direct gap {direct:.6f} Ha, "
+        f"indirect gap {indirect:.6f} Ha")
+    check(bool(torch.isfinite(es).all()) and 0 < indirect <= direct,
+          "11e: band energies are not finite or the gaps are out of order")
+    return dict(npath=len(kpath), path_s=secs, direct=direct, indirect=indirect)
+
+
+def phase_cdft(torch, main, dev="cuda"):
+    """11f: a charge-constrained LDA SCF at the main width (atom 0's AOs
+    lose 0.05 e), and the Mulliken charges of phase 5's PBE0 density."""
+    from pyscf_isdf_tpu_torch.scf import analysis, cdft_kernel, scf_kernel
+    from pyscf_isdf_tpu_torch.scf.cdft import lowdin_population_op
+
+    system, res = main["system"], main["res"]
+    cell = system.cell
+    ao0 = [i for ish, sh in enumerate(cell.shells) if sh.atom == 0
+           for i in range(cell.ao_loc[ish], cell.ao_loc[ish + 1])]
+    lda, s_lda = timed(torch, lambda: scf_kernel(system, xc="lda,vwn", conv_tol=1e-10), dev)
+    n0 = float(torch.einsum("ij,ji->", lowdin_population_op(system.S, ao0), lda["dm"]))
+    out, secs = timed(torch, lambda: cdft_kernel(system, "lda,vwn", ao0, n0 - 0.05,
+                                                 conv_tol=1e-10, device=dev), dev)
+    dn = abs(out["population"] - (n0 - 0.05))
+    log(f"11f cDFT LDA at the main width, atom 0's {len(ao0)} AOs: unconstrained population "
+        f"{n0:.8f}, E {lda['e_tot']:.10f} ({lda['niter']} iterations, {s_lda:.2f} s); "
+        f"constrained to {n0 - 0.05:.8f}: population off by {dn:.3e} (bar 1e-6), lam "
+        f"{out['lam']:.8f}, E {out['e_tot']:.10f} (+{out['e_tot'] - lda['e_tot']:.3e} Ha), "
+        f"{out['n_scf']} inner SCFs, {secs:.2f} s")
+    check(dn < 1e-6 and out["lam"] > 0 and out["e_tot"] > lda["e_tot"],
+          "11f: the constrained population, multiplier or energy is wrong")
+    _, q = analysis.mulliken_pop(cell, res["dm"], system.S)
+    qsum = float(q.sum())
+    log(f"11f Mulliken charges of phase 5's PBE0 density: min {float(q.min()):.6f}, max "
+        f"{float(q.max()):.6f}, sum {qsum:.3e} (bar 1e-8)")
+    check(abs(qsum) < 1e-8, "11f: the Mulliken charges do not sum to 0")
+    return dict(n_scf=out["n_scf"], secs=secs)
+
+
+STAGGER_GOLDENS = {"standard": -0.0143904878990777, "submesh": -0.0160902544091997,
+                   "non-SCF bands": -0.0140289970302513}   # tests/test_kmp2_stagger.py
+
+
+def phase_stagger(torch, ksys, krhf, e_kmp2, dev="cuda"):
+    """11g: staggered-mesh KMP2 (non-SCF bands with 'vcut_sph') on 10c's
+    KRHF at nk 27, and the H2 2x2x2 goldens of tests/test_kmp2_stagger.py."""
+    import numpy as np
+
+    from pyscf_isdf_tpu_torch import build_cell, lattice
+    from pyscf_isdf_tpu_torch.mp.kmp2 import kmp2_energy
+    from pyscf_isdf_tpu_torch.mp.kmp2_stagger import kmp2_stagger_energy
+    from pyscf_isdf_tpu_torch.scf import build_kscf_system, kscf_kernel
+    from pyscf_isdf_tpu_torch.utils.timing import StageTimer
+
+    timer = StageTimer(dev)
+    e_st, secs = timed(torch, lambda: kmp2_stagger_energy(ksys, krhf, device=dev,
+                                                          timer=timer), dev)
+    nk = len(ksys.kpts)
+    log(f"11g staggered KMP2 (non-SCF bands, {2 * nk} band k-points with 'vcut_sph') on 10c's "
+        f"KRHF: {e_st:.12f} Ha against 10c's KMP2 {e_kmp2:.12f} Ha; {secs:.2f} s (bands "
+        f"{sum(timer.seconds['bands']):.2f} s, triple loop {sum(timer.seconds['triple loop']):.2f} s)")
+    check(math.isfinite(e_st) and e_st < 0, "11g: the staggered KMP2 is not negative")
+
+    cell = build_cell(6.0 * np.eye(3), [["H", (3.0, 3.0, 2.10)], ["H", (3.0, 3.0, 3.90)]],
+                      "gth-szv", pseudo="gth-pade", ke_cutoff=100.0)
+    kpts = lattice.make_kpts(cell.a, [2, 2, 2], with_gamma_point=True)
+    h2 = build_kscf_system(cell, kpts, device=dev)
+    res = kscf_kernel(h2, xc=None, conv_tol=1e-11, device=dev)
+    got = {"standard": kmp2_energy(h2, res, device=dev),
+           "submesh": kmp2_stagger_energy(h2, res, flag_submesh=True, device=dev),
+           "non-SCF bands": kmp2_stagger_energy(h2, res, device=dev)}
+    for k, e in got.items():
+        d = abs(e - STAGGER_GOLDENS[k])
+        log(f"11g H2 2x2x2 (mesh {cell.mesh}) {k}: {e:.13f} Ha, golden "
+            f"{STAGGER_GOLDENS[k]:.13f}, |diff| {d:.3e} (bar 2e-6)")
+        check(d < 2e-6, f"11g: H2 {k} misses the reference's golden")
+    return dict(e=e_st, secs=secs, bands_s=sum(timer.seconds["bands"]),
+                loop_s=sum(timer.seconds["triple loop"]))
+
+
+def phase_small_slice8(torch, devs=("cuda", "cpu")):
+    """11h: each new driver on the cells of its reference test, card
+    against CPU (``devs``): energies to 1e-10 Ha, equal iteration counts."""
+    import numpy as np
+
+    from pyscf_isdf_tpu_torch import build_cell, lattice
+    from pyscf_isdf_tpu_torch.models import diamond_primitive
+    from pyscf_isdf_tpu_torch.mp.kmp2_stagger import kmp2_stagger_energy
+    from pyscf_isdf_tpu_torch.scf import (
+        build_kscf_system, build_scf_system, cdft_kernel, get_bands, kghf_kernel,
+        krohf_kernel, kscf_kernel, kuhf_kernel, rohf_kernel, scf_kernel,
+    )
+    from pyscf_isdf_tpu_torch.scf.cdft import lowdin_population_op
+
+
+    def same(label, run, counted=True):
+        e, n = [], []
+        for dev in devs:
+            res = run(dev)
+            if isinstance(res, dict):
+                check(res["converged"], f"11h {label} on {dev} did not converge")
+                e.append(res["e_tot"])
+                n.append(res["niter"])
+            else:
+                e.append(res)
+        diff = abs(e[0] - e[1])
+        log(f"11h {label}: card {e[0]:.12f}, cpu {e[1]:.12f}, |diff| {diff:.3e} "
+            f"(bar 1e-10)" + (f", iterations {n[0]} / {n[1]}" if counted else ""))
+        check(diff < 1e-10, f"11h {label}: card != CPU")
+        check(not counted or n[0] == n[1], f"11h {label}: iteration counts differ")
+
+    h_atom = build_cell(np.eye(3) * 6.0, [["H", (3.0, 3.0, 3.0)]],
+                        basis=[[0, (1.3, 1.0)], [0, (0.4, 1.0)]], mesh=[25] * 3, spin=1)
+    hsys = {dev: build_scf_system(h_atom, device=dev) for dev in set(devs)}
+    for xc in (None, "lda,vwn"):
+        same(f"ROHF/ROKS xc={xc} H atom (tests/test_rohf.py)",
+             lambda dev: rohf_kernel(hsys[dev], xc=xc, conv_tol=1e-10, device=dev))
+    li = build_cell(6.0 * np.eye(3), [["Li", (3.0, 3.0, 3.0)]], basis="gth-szv",
+                    pseudo="gth-pade-q3", mesh=(18, 18, 18), spin=1)
+    lsys = {dev: build_kscf_system(li, np.zeros((1, 3)), device=dev) for dev in set(devs)}
+    same("KROHF Li cell (tests/test_krohf_gamma_smearing.py)",
+         lambda dev: krohf_kernel(lsys[dev], conv_tol=1e-10, device=dev))
+
+    chain = build_cell(np.diag([6.0, 6.0, 3.0]), [["H", (3.0, 3.0, 1.5)]], basis="gth-szv",
+                       pseudo="gth-pade", mesh=[15, 15, 9], spin=1)
+    ckpts = lattice.make_kpts(chain.a, [1, 1, 2], with_gamma_point=True)
+    csys = {dev: build_kscf_system(chain, ckpts, device=dev) for dev in set(devs)}
+
+    def collinear(dev):
+        u = kuhf_kernel(csys[dev], conv_tol=1e-11, device=dev)
+        nk, nao = u["dm"][0].shape[:2]
+        dm0 = torch.zeros((nk, 2 * nao, 2 * nao), dtype=torch.complex128, device=dev)
+        dm0[:, :nao, :nao], dm0[:, nao:, nao:] = u["dm"]
+        g = kghf_kernel(csys[dev], dm0=dm0, conv_tol=1e-11, device=dev)
+        check(abs(g["e_tot"] - u["e_tot"]) < 1e-8, f"11h: collinear KGHF != KUHF on {dev}")
+        return g
+    same("KGHF collinear = KUHF (tests/test_kghf.py chain)", collinear)
+    same("KGHF odd electron count", lambda dev: kghf_kernel(csys[dev], conv_tol=1e-9,
+                                                            device=dev))
+
+    dcell = diamond_primitive(mesh=(10, 10, 10))
+    dk = lattice.make_kpts(dcell.a, [2, 1, 1], with_gamma_point=False)
+    dsys = {dev: build_kscf_system(dcell, dk, device=dev) for dev in set(devs)}
+    same("DFT+U LDA U 0.1 (tests/test_dftu.py)",
+         lambda dev: kscf_kernel(dsys[dev], xc="lda,vwn", conv_tol=1e-10,
+                                 hubbard=[("C", 1, 0.1)], device=dev))
+    h2 = build_cell(6.0 * np.eye(3), [["H", (2.3, 3.0, 3.0)], ["H", (3.7, 3.0, 3.0)]],
+                    basis="gth-szv", pseudo="gth-pade", mesh=[20] * 3)
+    h2sys = {dev: build_scf_system(h2, device=dev) for dev in set(devs)}
+    # the secant ends anywhere within its 1e-6 population tolerance, so the
+    # card's and the CPU's multipliers part there; the SCF at one
+    # multiplier is held to 1e-10 from one start (this 2-AO SCF's DIIS path
+    # from the core guess turns on round-off: 14-18 iterations on three
+    # machines)
+    lam, dm = {}, {}
+    for dev in devs:
+        r = cdft_kernel(h2sys[dev], "lda,vwn", [0], 0.7, conv_tol=1e-11, device=dev)
+        check(abs(r["population"] - 0.7) < 1e-6, f"11h cDFT H2 on {dev} misses its target")
+        lam[dev], dm[dev] = r["lam"], r["dm"].cpu()
+    log(f"11h cDFT H2 (tests/test_cdft.py) population 0.7: lam card {lam[devs[0]]:.10f}, cpu "
+        f"{lam[devs[1]]:.10f}")
+    same("cDFT H2 SCF at the card's multiplier from the CPU's density",
+         lambda dev: scf_kernel(h2sys[dev], xc="lda,vwn", conv_tol=1e-11, dm0=dm[devs[1]],
+                                v_ext=lam[devs[0]] * lowdin_population_op(h2sys[dev].S, [0])))
+    for xc in ("pbe0", "hse06"):
+        res = {dev: kscf_kernel(dsys[dev], xc=xc, conv_tol=1e-10, device=dev)
+               for dev in set(devs)}
+        kb = np.vstack([dk, 0.5 * (dk[0] + dk[1])])
+
+        def band_sum(dev):
+            return float(get_bands(dsys[dev], res[dev], kb, xc=xc, device=dev)[0].sum())
+        same(f"bands {xc} (summed, 3 band k-points)", band_sum, counted=False)
+    hk = build_cell(6.0 * np.eye(3), [["H", (3.0, 3.0, 2.10)], ["H", (3.0, 3.0, 3.90)]],
+                    "gth-szv", pseudo="gth-pade", mesh=[12] * 3)
+    hkpts = lattice.make_kpts(hk.a, [2, 2, 2])
+    hksys = {dev: build_kscf_system(hk, hkpts, device=dev) for dev in set(devs)}
+    hres = {dev: kscf_kernel(hksys[dev], conv_tol=1e-11, device=dev) for dev in set(devs)}
+    same("stagger flag_submesh=True H2 2x2x2 12^3",
+         lambda dev: kmp2_stagger_energy(hksys[dev], hres[dev], flag_submesh=True, device=dev),
+         counted=False)
+
+
 def main():
     try:
         import torch
@@ -1277,6 +1698,8 @@ def main():
     from pyscf_isdf_tpu_torch import build_cell
     from pyscf_isdf_tpu_torch.models import diamond_primitive, diamond_supercell
     from pyscf_isdf_tpu_torch.ops import cuda_lib
+    from pyscf_isdf_tpu_torch.ops.cuda_ao import collocate
+    from pyscf_isdf_tpu_torch.ops.cuda_robust_k import robust_k_cross
 
     t0 = time.perf_counter()
     cuda_lib.load()
@@ -1306,7 +1729,8 @@ def main():
     check(n_ip == 16 * 216, f"main path n_ip={n_ip}, K2 was timed at 3456")
     torch.cuda.empty_cache()
     phase_small_k(torch)
-    cert, ksys, e_cell = phase_certified(torch)
+    cert, ksys, krks = phase_certified(torch)
+    e_cell = krks["e_tot"]
     t8 = time.perf_counter()
     rsh = phase_rsh_main(torch)
     rsh["graph_k"] = phase_graph_k(torch, ksys, e_cell)
@@ -1322,14 +1746,37 @@ def main():
     log(f"phase 9: {time.perf_counter() - t9:.1f} s")
     t10 = time.perf_counter()
     mp2 = phase_mp2_main(torch, main_path)
-    del main_path
     torch.cuda.empty_cache()
     mp2["k"] = phase_kmp2(torch, ksys)
     mp2["ibz"] = phase_ibz(torch, ksys, smeared, mp2["k"]["krhf_gap"])
-    del ksys, smeared
+    del smeared
     torch.cuda.empty_cache()
     mp2["k1_small"] = phase_small_mp2(torch)
     log(f"phase 10: {time.perf_counter() - t10:.1f} s")
+    t11 = time.perf_counter()
+    collocate.launches = 0
+    robust_k_cross.launches = 0
+    krhf, pbe0 = mp2["k"]["krhf"], mp2["ibz"]["KRKS PBE0/isdf c=10"]
+    for name, fn, args in (
+            ("11b", phase_krohf, (ksys, e_cell, pbe0["e_full"], pbe0["ms_full"])),
+            ("11c", phase_kghf, (ksys, krhf["e_tot"])),
+            ("11d", phase_dftu, (ksys, e_cell)),
+            ("11e", phase_bands, (ksys, krks, krhf)),
+            ("11g", phase_stagger, (ksys, krhf, mp2["k"]["e_kmp2"])),
+            ("11a", phase_roks_main, (main_path, spin["triplet_ms"])),
+            ("11f", phase_cdft, (main_path,)),
+            ("11h", phase_small_slice8, ())):
+        reset_peak(torch, "cuda")
+        t0 = time.perf_counter()
+        fn(torch, *args)
+        log(f"{name}: {time.perf_counter() - t0:.1f} s, peak device memory "
+            f"{peak_gb(torch, 'cuda'):.2f} GB (phase 5's system and phase 7's k-system "
+            "resident)")
+    del ksys, krks, krhf, main_path
+    torch.cuda.empty_cache()
+    slice8 = {"ao_collocate": collocate.launches, "robust_k_cross": robust_k_cross.launches}
+    log(f"phase 11: {time.perf_counter() - t11:.1f} s, launches {slice8}")
+    check(slice8["ao_collocate"] > 0, "phase 11: K1 was not launched by the card's builds")
 
     kernels = [
         dict(name="ao_collocate", route="cuda",
@@ -1341,7 +1788,8 @@ def main():
              certified=dict(launches=cert["k1_launches"]),
              hse06=dict(launches=rsh["launches"]["ao_collocate"]),
              open_shell=dict(launches=spin["k1_small"]),
-             mp2=dict(launches=mp2["k1_small"])),
+             mp2=dict(launches=mp2["k1_small"]),
+             slice8=dict(launches=slice8["ao_collocate"])),
         dict(name="robust_k_cross", route="cuda",
              source="pyscf_isdf_tpu_torch/csrc/robust_k.cu",
              replaces="pyscf_isdf_tpu/ops/pallas_robust_k.py:41",
@@ -1356,7 +1804,8 @@ def main():
              hse06=dict(launches=rsh["launches"]["robust_k_cross"], niter=rsh["niter"],
                         shape=rsh["shape"]),
              open_shell=dict(launches=spin["k2"], uks=spin["uks"],
-                             triplet=spin["triplet"])),
+                             triplet=spin["triplet"]),
+             slice8=dict(launches=slice8["robust_k_cross"])),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

@@ -9,7 +9,8 @@ K):
      wrap-around Coulomb kernel coulG(q) and e^{-iq.r} phase factors — the
      O(nao nk^2) FFT cost the k-point ISDF engines amortize. For each
      density k2 the bra rows of every band k1 go through the FFTs
-     together, ``chunk`` rows at a time.
+     together, ``chunk`` rows at a time. At band k-points off the SCF set
+     (:func:`get_k_band`) the band k-points' AOs are the bra.
 
 The per-(k1,k2) constants (coulG(q), expmikr) are precomputed on the host
 in float64 (:func:`make_k_kernels`).
@@ -64,21 +65,16 @@ def make_k_kernels(cell, kpts, exxdiv=None, omega=None):
     return coulG, expmikr
 
 
-def _k_sum(aoR_k, ket, ket_dm, coulG_pairs, expmikr, mesh, weight, chunk,
-           k1_idx=None):
-    """sum_k2 w conj(phase) [ifft(coulG fft(bra x ket_k2)) . ket_dm_k2] ao_k1
-    over bra rows conj(ao_k1) e^{-i(k2-k1).r} of every band k1 (all k, or
-    the list ``k1_idx``)."""
-    nk, ng, nao = aoR_k.shape
-    k1 = slice(None) if k1_idx is None else torch.as_tensor(list(k1_idx),
-                                                            device=aoR_k.device)
-    ao1 = aoR_k[k1]                                          # (n1, ng, nao)
-    n1 = ao1.shape[0]
-    vk = torch.zeros((n1, nao, nao), dtype=aoR_k.dtype, device=aoR_k.device)
-    for k2 in range(nk):
+def _k_sum(ao1, nk2, ket, ket_dm, kernel, mesh, weight, chunk):
+    """sum_k2 w conj(phase) [ifft(coulG fft(bra x ket_k2)) . ket_dm_k2] ao1
+    over the bra rows conj(ao1) phase of every band k-point in ``ao1``
+    (n1, ng, nao); ``kernel(k2)`` gives the (n1, ng) kernels coulG and
+    phases e^{-i(k2-k1).r} of the band k-points against density k2."""
+    n1, ng, nao = ao1.shape
+    vk = torch.zeros((n1, nao, nao), dtype=ao1.dtype, device=ao1.device)
+    for k2 in range(nk2):
         ketT, dmT = ket(k2), ket_dm(k2)                      # (nb, ng) each
-        phase = expmikr[k2][k1]                              # (n1, ng)
-        cG = coulG_pairs[k2][k1]                             # (n1, ng)
+        cG, phase = kernel(k2)                               # (n1, ng) each
         bra = (ao1.conj().transpose(1, 2) * phase[:, None, :]).reshape(-1, ng)
         rows = []
         for i0 in range(0, bra.shape[0], chunk):
@@ -90,6 +86,15 @@ def _k_sum(aoR_k, ket, ket_dm, coulG_pairs, expmikr, mesh, weight, chunk,
         vR_dm = torch.cat(rows).reshape(n1, nao, ng) * phase.conj()[:, None, :]
         vk += weight * (vR_dm @ ao1)
     return vk
+
+
+def _pair_kernels(aoR_k, coulG_pairs, expmikr, k1_idx):
+    """The band rows ``k1_idx`` (all k when None) of the SCF set and the
+    kernel function of :func:`_k_sum` over them."""
+    if k1_idx is None:
+        return aoR_k, lambda k2: (coulG_pairs[k2], expmikr[k2])
+    k1 = torch.as_tensor(list(k1_idx), device=aoR_k.device)
+    return aoR_k[k1], lambda k2: (coulG_pairs[k2][k1], expmikr[k2][k1])
 
 
 def get_k_kpts(aoR_k, dm_k, coulG_pairs, expmikr, mesh, weight,
@@ -104,9 +109,36 @@ def get_k_kpts(aoR_k, dm_k, coulG_pairs, expmikr, mesh, weight,
             density k2), the IBZ driver's subset. Output order follows
             k1_idx.
     """
-    return _k_sum(aoR_k, lambda k2: aoR_k[k2].T,
-                  lambda k2: dm_k[k2] @ aoR_k[k2].T.conj(),
-                  coulG_pairs, expmikr, mesh, weight, chunk, k1_idx)
+    ao1, kernel = _pair_kernels(aoR_k, coulG_pairs, expmikr, k1_idx)
+    return _k_sum(ao1, aoR_k.shape[0], lambda k2: aoR_k[k2].T,
+                  lambda k2: dm_k[k2] @ aoR_k[k2].T.conj(), kernel, mesh, weight,
+                  chunk)
+
+
+def get_k_band(aoRb, aoR_k, dm_k, coulG_bk, expmikr_bk, mesh, kweight,
+               chunk: int = 16):
+    """Exchange at band k-points from the k-sampled SCF density (the
+    reference's get_bands exchange, pyscf/pbc/scf/khf.py:581 with the
+    fft_jk kpts_band path): the bra rows are the band k-point's AOs, the
+    sum runs over every density k2 as in :func:`get_k_kpts`.
+
+    Args:
+        aoRb: (ng, nao) Bloch AOs at one band k-point, or (nb, ng, nao)
+            at ``nb`` of them at once.
+        aoR_k / dm_k: (nk, ng, nao) / (nk, nao, nao) SCF-set quantities.
+        coulG_bk: (nk, ng) kernels coulG(k2 - kb), or (nb, nk, ng).
+        expmikr_bk: (nk, ng) phases exp(-i (k2-kb).r), or (nb, nk, ng).
+        kweight: (1/nk) * vol/ngrids.
+    Returns (nao, nao), or (nb, nao, nao) for a batch of band k-points.
+    """
+    one = aoRb.dim() == 2
+    ao1 = aoRb[None] if one else aoRb
+    cG = coulG_bk[None] if one else coulG_bk
+    ph = expmikr_bk[None] if one else expmikr_bk
+    vk = _k_sum(ao1.to(aoR_k.dtype), aoR_k.shape[0], lambda k2: aoR_k[k2].T,
+                lambda k2: dm_k[k2] @ aoR_k[k2].T.conj(),
+                lambda k2: (cG[:, k2], ph[:, k2]), mesh, kweight, chunk)
+    return vk[0] if one else vk
 
 
 def get_k_kpts_occ(aoR_k, mo_w_k, coulG_pairs, expmikr, mesh, weight,
@@ -120,6 +152,6 @@ def get_k_kpts_occ(aoR_k, mo_w_k, coulG_pairs, expmikr, mesh, weight,
             column scaled by sqrt(occ) — equals K[dm] for
             dm_k = (C_k * occ_k) C_k^H.
     """
-    return _k_sum(aoR_k, lambda k2: mo_w_k[k2].T,
-                  lambda k2: mo_w_k[k2].T.conj(),
-                  coulG_pairs, expmikr, mesh, weight, chunk)
+    ao1, kernel = _pair_kernels(aoR_k, coulG_pairs, expmikr, None)
+    return _k_sum(ao1, aoR_k.shape[0], lambda k2: mo_w_k[k2].T,
+                  lambda k2: mo_w_k[k2].T.conj(), kernel, mesh, weight, chunk)

@@ -4,8 +4,8 @@ Host-side float64 builders for per-geometry constants (3-D cells):
 
   * :func:`get_coulG` — 4 pi / |k+G|^2 with wrap-around of high-frequency
     k+G, the G=0 conventions and the Ewald probe-charge ('ewald') /
-    spherical-cutoff ('vcut_sph', Gamma only) exchange-divergence
-    corrections (reference semantics: pyscf/pbc/tools/pbc.py:230-420),
+    spherical-cutoff ('vcut_sph') exchange-divergence corrections
+    (reference semantics: pyscf/pbc/tools/pbc.py:230-420),
   * :func:`ewald` — real+reciprocal Ewald sum for the nuclear repulsion
     (reference: pyscf/pbc/gto/cell.py:648-800),
   * :func:`madelung` — probe-charge Madelung constant, = -2 x ewald energy
@@ -14,8 +14,8 @@ Host-side float64 builders for per-geometry constants (3-D cells):
   * :func:`madelung_omega` — the same under the long-range erf(w r)/r
     kernel (range-separated exchange).
 
-The low-dimensional kernels, 'vcut_ws' and 'vcut_sph' at a k-point are
-not ported yet and raise ``NotImplementedError``.
+The low-dimensional kernels and 'vcut_ws' are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -36,9 +36,11 @@ def get_coulG(cell, k=None, exxdiv=None, mesh=None, Gv=None, kpts=None,
         k: momentum transfer (3,): zero or None for J builds, k_j - k_i
             for exchange.
         exxdiv: None | 'ewald' | 'vcut_sph' — G=0 divergence treatment for
-            exchange matrix elements ('vcut_sph' at Gamma only).
+            exchange matrix elements.
         kpts: the full k-point set; 'ewald' scales the probe-charge shift
-            by its Monkhorst-Pack size.
+            by its size Nk, and 'vcut_sph' truncates at the radius Rc of
+            the sphere of Nk cells' volume (the SCF k-mesh, also when ``k``
+            is a band k-point's transfer).
         omega: range separation: > 0 the long-range erf(w r)/r kernel,
             < 0 the short-range erfc(|w| r)/r kernel.
 
@@ -52,8 +54,6 @@ def get_coulG(cell, k=None, exxdiv=None, mesh=None, Gv=None, kpts=None,
     k = np.zeros(3) if k is None else np.asarray(k, dtype=np.float64)
     kpts = k.reshape(1, 3) if kpts is None else np.reshape(kpts, (-1, 3))
     at_k = np.abs(k).sum() > 1e-9
-    if exxdiv == "vcut_sph" and (at_k or len(kpts) > 1):
-        raise NotImplementedError("exxdiv='vcut_sph' with k-points")
     mesh = mesh or cell.mesh
     if Gv is None:
         Gv = cell.get_Gv(mesh)
@@ -77,7 +77,7 @@ def get_coulG(cell, k=None, exxdiv=None, mesh=None, Gv=None, kpts=None,
     G0_idx = absG2 == 0
 
     if exxdiv == "vcut_sph":
-        Rc = (3 * cell.vol / (4 * np.pi)) ** (1.0 / 3)
+        Rc = (3 * len(kpts) * cell.vol / (4 * np.pi)) ** (1.0 / 3)
         with np.errstate(divide="ignore", invalid="ignore"):
             coulG = 4 * np.pi / absG2 * (1.0 - np.cos(np.sqrt(absG2) * Rc))
         coulG[G0_idx] = 4 * np.pi * 0.5 * Rc**2

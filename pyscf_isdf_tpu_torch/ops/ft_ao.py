@@ -110,7 +110,9 @@ def overlap_and_kinetic(cell, kpt=None, ktol=1e-16, device=None,
         -1/2 nabla^2 [S_lm(u) e^{-b u^2}] = b(2l+3) phi - 2 b^2 u^2 phi
 
     so T needs only the same moments with the ket monomial raised by 2; at a
-    k-point each image carries the Bloch phase e^{i k.T}.
+    k-point each image carries the Bloch phase e^{i k.T}. ``kpt`` of shape
+    (nb, 3) gives (nb, nao, nao) complex128 stacks, every k-point from the
+    one image sum of each primitive pair.
     Images whose Gaussian-product prefactor is below ``ktol`` are dropped,
     as in the reference. ``chunk_elems`` bounds the (bra shells x ket
     shells x primitive pairs x images) elements of one chunk.
@@ -120,12 +122,15 @@ def overlap_and_kinetic(cell, kpt=None, ktol=1e-16, device=None,
     nao = cell.nao
     images = torch.as_tensor(cell.lattice_images(), **f64)          # (nt, 3)
     phase = None
-    if kpt is not None and np.abs(kpt).sum() > 1e-12:
-        phase = torch.exp(1j * (images @ torch.as_tensor(kpt, **f64)))
+    batch = kpt is not None and np.ndim(kpt) == 2
+    if batch or (kpt is not None and np.abs(kpt).sum() > 1e-12):
+        kt = torch.as_tensor(kpt, **f64)
+        phase = torch.exp(1j * (images @ (kt.T if batch else kt)))   # (nt[, nb])
     out = dict(dtype=torch.float64 if phase is None else torch.complex128,
                device=device)
-    S = torch.zeros((nao, nao), **out)
-    T = torch.zeros((nao, nao), **out)
+    lead = (len(kpt),) if batch else ()
+    S = torch.zeros(lead + (nao, nao), **out)
+    T = torch.zeros(lead + (nao, nao), **out)
     groups = _shell_groups(cell)
     for li, ctr_i, exp_i, cf_i, cols_i in groups:
         mi, Ci = _monos(li)
@@ -145,24 +150,28 @@ def overlap_and_kinetic(cell, kpt=None, ktol=1e-16, device=None,
                 ca = torch.as_tensor(cf_i[i0:i0 + step], **f64)     # (ni, P, K)
                 s_blk, m_blk = _pair_moments(A, a, B0, b, images, li, lj,
                                              mi, mj, ktol, phase)
-                bq = b[None, :, None, :, None, None]
+                if not batch:
+                    s_blk, m_blk = s_blk[..., None, :, :], m_blk[..., None, :, :]
+                bq = b[None, :, None, :, None, None, None]
                 t_blk = bq * (2 * lj + 3) * s_blk - 2.0 * bq * bq * m_blk
                 # contractions, then monomials -> solid harmonics
                 cc = [x.to(s_blk.dtype) for x in (ca, cb, Ci, Cj)]
-                s_sh = torch.einsum("ijpqab,ipk,jql,ma,nb->ikmjln", s_blk, *cc)
-                t_sh = torch.einsum("ijpqab,ipk,jql,ma,nb->ikmjln", t_blk, *cc)
+                s_sh = torch.einsum("ijpqzab,ipk,jql,ma,nb->zikmjln", s_blk, *cc)
+                t_sh = torch.einsum("ijpqzab,ipk,jql,ma,nb->zikmjln", t_blk, *cc)
                 ni = A.shape[0]
                 rows = cols_i.reshape(len(ctr_i), -1)[i0:i0 + ni].reshape(-1)
-                s_sh = s_sh.reshape(len(rows), -1)
-                t_sh = t_sh.reshape(len(rows), -1)
+                s_sh = s_sh.reshape(s_sh.shape[0], len(rows), -1)
+                t_sh = t_sh.reshape(t_sh.shape[0], len(rows), -1)
                 r_ok = np.nonzero(rows >= 0)[0]
                 c_ok = np.nonzero(cols_j >= 0)[0]
                 r_idx = torch.as_tensor(rows[r_ok], device=device)
                 c_idx = torch.as_tensor(cols_j[c_ok], device=device)
                 r_sel = torch.as_tensor(r_ok, device=device)
                 c_sel = torch.as_tensor(c_ok, device=device)
-                S[r_idx[:, None], c_idx[None, :]] = s_sh[r_sel][:, c_sel]
-                T[r_idx[:, None], c_idx[None, :]] = t_sh[r_sel][:, c_sel]
+                S[..., r_idx[:, None], c_idx[None, :]] = s_sh[:, r_sel][:, :, c_sel].reshape(
+                    lead + (len(r_ok), len(c_ok)))
+                T[..., r_idx[:, None], c_idx[None, :]] = t_sh[:, r_sel][:, :, c_sel].reshape(
+                    lead + (len(r_ok), len(c_ok)))
     return S, T
 
 
@@ -172,7 +181,8 @@ def _pair_moments(A, a, B0, b, images, li, lj, mi, mj, ktol, phase=None):
     Returns (s, m), each (ni, nj, P, Q, nmono_i, nmono_j):
     s = sum_T K_T prod_d V_d[al_d][be_d] and m the same with the ket
     monomial raised by 2 along each axis in turn (summed over axes);
-    complex with the per-image Bloch ``phase`` (nt,).
+    complex with the per-image Bloch ``phase`` (nt,), and (ni, nj, P, Q,
+    nb, nmono_i, nmono_j) with the phases of nb k-points (nt, nb).
     """
     AB = A[:, None, None, :] - B0[None, :, None, :] - images[None, None]
     AB2 = (AB * AB).sum(-1)                                   # (ni, nj, nt)
@@ -180,8 +190,12 @@ def _pair_moments(A, a, B0, b, images, li, lj, mi, mj, ktol, phase=None):
     mu = a[:, None, :, None] * b[None, :, None, :] / p
     K = torch.exp(-mu[..., None] * AB2[:, :, None, None, :])  # (..., nt)
     w = torch.where(K > ktol, K, torch.zeros_like(K))
+
     if phase is not None:
-        w = w * phase
+        cos, sin = phase.real.contiguous(), phase.imag.contiguous()
+
+    def image_sum(v):
+        return v.sum(-1) if phase is None else torch.complex(v @ cos, v @ sin)
     nmax = li + lj + 2
     E = [torch.sqrt(torch.pi / p)[..., None]]
     for n in range(1, nmax + 1):
@@ -197,18 +211,20 @@ def _pair_moments(A, a, B0, b, images, li, lj, mi, mj, ktol, phase=None):
     def mono(al, be):
         return V[0][al[0]][be[0]] * V[1][al[1]][be[1]] * V[2][al[2]][be[2]]
 
-    shape = tuple(p.shape) + (len(mi), len(mj))
-    s = torch.empty(shape, dtype=w.dtype, device=p.device)
-    m = torch.empty(shape, dtype=w.dtype, device=p.device)
+    batch = () if phase is None or phase.dim() == 1 else (phase.shape[1],)
+    shape = tuple(p.shape) + batch + (len(mi), len(mj))
+    dtype = w.dtype if phase is None else phase.dtype
+    s = torch.empty(shape, dtype=dtype, device=p.device)
+    m = torch.empty(shape, dtype=dtype, device=p.device)
     for ii, al in enumerate(mi):
         for jj, be in enumerate(mj):
-            s[..., ii, jj] = (w * mono(al, be)).sum(-1)
+            s[..., ii, jj] = image_sum(w * mono(al, be))
             raised = 0.0
             for d in range(3):
                 be2 = list(be)
                 be2[d] += 2
                 raised = raised + mono(al, be2)
-            m[..., ii, jj] = (w * raised).sum(-1)
+            m[..., ii, jj] = image_sum(w * raised)
     return s, m
 
 

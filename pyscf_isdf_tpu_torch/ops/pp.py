@@ -106,20 +106,22 @@ def _potential_matrix(aoR: torch.Tensor, vR: np.ndarray) -> torch.Tensor:
     return (aoR.conj().T * v) @ aoR
 
 
-def get_vpploc(cell, aoR: torch.Tensor, mesh=None, Gv=None):
-    """Local-PP matrix and the real-space potential it integrates.
-
-    Returns (vpploc (nao,nao) tensor, vpplocR (ngrids,) numpy): the ifft
-    of -sum_atoms SI * vlocG with the G=0 alpha convention.
-    """
+def vpploc_real(cell, mesh=None, Gv=None) -> np.ndarray:
+    """The local-PP potential on the grid, (ngrids,) numpy: the ifft of
+    -sum_atoms SI * vlocG with the G=0 alpha convention."""
     mesh = mesh or cell.mesh
     if Gv is None:
         Gv = cell.get_Gv(mesh)
     SI = cell.get_SI(Gv=Gv)
-    vlocG = gth_vlocG(cell, Gv)
-    vpplocG = -np.sum(SI * vlocG, axis=0)
+    vpplocG = -np.sum(SI * gth_vlocG(cell, Gv), axis=0)
     vpplocG[0] = np.sum(gth_alphas(cell))
-    vpplocR = np.fft.ifftn(vpplocG.reshape(mesh)).real.ravel()
+    return np.fft.ifftn(vpplocG.reshape(mesh)).real.ravel()
+
+
+def get_vpploc(cell, aoR: torch.Tensor, mesh=None, Gv=None):
+    """Local-PP matrix and the real-space potential it integrates:
+    (vpploc (nao,nao) tensor, vpplocR (ngrids,) numpy)."""
+    vpplocR = vpploc_real(cell, mesh, Gv)
     return _potential_matrix(aoR, vpplocR), vpplocR
 
 
@@ -170,9 +172,9 @@ def get_vppnl(cell, mesh=None, kpt=None, device=None) -> torch.Tensor:
     return vppnl
 
 
-def get_nuc(cell, aoR: torch.Tensor, mesh=None) -> torch.Tensor:
-    """All-electron nuclear attraction via the structure-factor route
-    (reference: pyscf/pbc/df/fft.py:39-62)."""
+def vnuc_real(cell, mesh=None) -> np.ndarray:
+    """The all-electron nuclear potential on the grid, (ngrids,) numpy,
+    by the structure-factor route (reference: pyscf/pbc/df/fft.py:39-62)."""
     from pyscf_isdf_tpu_torch.ops import coulomb as _coul
 
     mesh = mesh or cell.mesh
@@ -180,8 +182,13 @@ def get_nuc(cell, aoR: torch.Tensor, mesh=None) -> torch.Tensor:
     SI = cell.get_SI(Gv=Gv)
     coulG = _coul.get_coulG(cell, mesh=mesh, Gv=Gv)
     rhoG = (-cell.charges) @ SI
-    vneR = np.fft.ifftn((rhoG * coulG).reshape(mesh)).real.ravel()
-    return _potential_matrix(aoR, vneR)
+    return np.fft.ifftn((rhoG * coulG).reshape(mesh)).real.ravel()
+
+
+def get_nuc(cell, aoR: torch.Tensor, mesh=None) -> torch.Tensor:
+    """All-electron nuclear attraction matrix (:func:`vnuc_real` by grid
+    quadrature)."""
+    return _potential_matrix(aoR, vnuc_real(cell, mesh))
 
 
 def get_pp(cell, aoR: torch.Tensor, mesh=None) -> torch.Tensor:

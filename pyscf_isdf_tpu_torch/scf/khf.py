@@ -23,6 +23,7 @@ from pyscf_isdf_tpu_torch.ops import coulomb, pp as pp_ops
 from pyscf_isdf_tpu_torch.ops.ao_eval import ao_gradient_fft_k, eval_ao_kpts
 from pyscf_isdf_tpu_torch.ops.ft_ao import overlap_and_kinetic
 from pyscf_isdf_tpu_torch.ops.xc import XCSpec
+from pyscf_isdf_tpu_torch.scf.dftu import HubbardU
 from pyscf_isdf_tpu_torch.scf.diis import DIIS
 from pyscf_isdf_tpu_torch.scf.hf import rsh_coeffs
 from pyscf_isdf_tpu_torch.scf.occupations import (
@@ -302,9 +303,14 @@ def kscf_kernel(
     loop runs over the irreducible k-points alone ('fftdf' and 'isdf';
     see :func:`~pyscf_isdf_tpu_torch.scf.khf_ksymm.kscf_ibz_kernel`).
 
-    DFT+U (``hubbard``), Becke grids, the gdf/aegdf engines and
-    ``isdf_precision='dd'`` are not ported yet and raise
-    ``NotImplementedError``.
+    ``hubbard`` turns on DFT+U (reference pyscf/pbc/dft/krkspu.py): a list
+    of (atom index or element symbol, l, U in Hartree) subspaces, whose
+    E_U joins the energy and V_U the Fock matrix
+    (:class:`~pyscf_isdf_tpu_torch.scf.dftu.HubbardU`); it does not combine
+    with ``ibz`` (``ValueError``).
+
+    Becke grids, the gdf/aegdf engines and ``isdf_precision='dd'`` are not
+    ported yet and raise ``NotImplementedError``.
 
     Returns a dict with e_tot, mo_energy, mo_coeff (per-k tensor lists),
     mo_occ (per-k numpy arrays), dm (nk, nao, nao), converged, niter,
@@ -315,8 +321,6 @@ def kscf_kernel(
     if isdf_precision is not None:
         raise NotImplementedError(f"isdf_precision={isdf_precision!r}: the "
                                   "port solves in float64")
-    if hubbard:
-        raise NotImplementedError("DFT+U (hubbard)")
     if xc_grids != "uniform":
         raise NotImplementedError(f"xc_grids={xc_grids!r}")
     if df not in ("fftdf", "isdf", "isdf_q"):
@@ -324,6 +328,8 @@ def kscf_kernel(
             raise NotImplementedError(f"df engine {df!r}")
         raise ValueError(f"unknown df engine {df!r}: use 'fftdf', 'isdf' "
                          "or 'isdf_q'")
+    if hubbard and ibz is not None:
+        raise ValueError("hubbard with ibz: the IBZ SCF takes no DFT+U")
     if ibz is not None and df == "isdf_q":
         raise ValueError("df='isdf_q' has no band subset for the IBZ: use "
                          "'fftdf' or 'isdf'")
@@ -409,6 +415,7 @@ def kscf_kernel(
 
     S, hcore = at_bands(system.S), at_bands(system.hcore)
     X = system.X if ibz is None else tuple(system.X[k] for k in band_idx)
+    hub = HubbardU(cell, S, hubbard) if hubbard else None
 
     smeared = sigma > 0
     entropy, mu = 0.0, None
@@ -457,6 +464,10 @@ def kscf_kernel(
                     vk = vk + mad_add * (S @ dm @ S)
                 veff = veff - 0.5 * k_scale * vk
                 e_k = -0.25 * k_scale * trace(dm, vk)
+            e_u = 0.0
+            if hub is not None:
+                e_u, v_u = hub.energy_and_potential(dm)
+                veff = veff + v_u
 
             F = hcore + veff
             sds = S @ dm @ F - F @ dm @ S
@@ -479,7 +490,7 @@ def kscf_kernel(
 
             e1 = trace(dm, hcore)
             ecoul = 0.5 * trace(dm, vj)
-            e_tot = float(e1 + ecoul + e_xc + e_k + system.e_nuc)
+            e_tot = float(e1 + ecoul + e_xc + e_k + e_u + system.e_nuc)
             de = abs(e_tot - e_last)
             err_norm = float(torch.linalg.norm(err)) / max(1, err.numel()) ** 0.5
             if verbose:

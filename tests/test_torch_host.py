@@ -75,12 +75,14 @@ K_MODULES = ("kpts_helper", "k2gamma", "convert", "scf.khf", "scf.occupations",
              "df.fftdf_k", "df.isdf_k", "df.isdf_q", "df.isdf_sym",
              "scf.jit_diis", "scf.jit_driver", "ops.xc_mgga", "scf.uhf",
              "scf.kuhf", "symm", "scf.khf_ksymm", "df.fft_ao2mo", "mp.mp2", "mp.thc",
-             "mp.kmp2")
+             "mp.kmp2", "scf.rohf", "scf.krohf", "scf.kghf", "scf.dftu", "scf.cdft",
+             "scf.bands", "scf.analysis", "mp.kmp2_stagger")
 
 
 def test_port_imports_no_jax():
     """Importing every port module, the k-point ones, the graph drivers, the
-    meta-GGAs, the open-shell drivers, the IBZ SCF and MP2 named, leaves jax and the JAX package out of sys.modules
+    meta-GGAs, the open-shell drivers, the IBZ SCF, MP2 and the remaining
+    mean-field drivers and bands named, leaves jax and the JAX package out of sys.modules
     (a subprocess: this test process has imported jax)."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -133,3 +135,38 @@ def test_k_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(ValueError, match="lives on cpu"):
         kuhf_kernel(system, xc="lda,vwn", device="cuda")
     assert kscf_kernel(system, xc="lda,vwn", device="cpu")["converged"]
+
+
+def test_slice8_entry_points_default_to_cuda(monkeypatch):
+    """rohf_kernel, krohf_kernel, kghf_kernel, get_bands, cdft_kernel and
+    kmp2_stagger_energy take device=None as the GPU: they refuse without
+    CUDA, refuse a system that lives elsewhere, and run with device='cpu'."""
+    import inspect
+
+    from pyscf_isdf_tpu_torch import lattice
+    from pyscf_isdf_tpu_torch.mp import kmp2_stagger_energy
+    from pyscf_isdf_tpu_torch.scf import (
+        build_kscf_system, cdft_kernel, get_bands, kghf_kernel, krohf_kernel, rohf_kernel,
+    )
+
+    gamma_fns = (rohf_kernel, get_bands, cdft_kernel)
+    k_fns = (krohf_kernel, kghf_kernel, kmp2_stagger_energy)
+    for fn in gamma_fns + k_fns:
+        assert inspect.signature(fn).parameters["device"].default is None
+    cell = diamond_primitive(mesh=(7, 7, 7))
+    gsys = build_scf_system(cell, device="cpu")
+    ksys = build_kscf_system(cell, lattice.make_kpts(cell.a, [2, 1, 1]), device="cpu")
+    args = {rohf_kernel: (), get_bands: ({"dm": gsys.S}, np.zeros(3)),
+            cdft_kernel: ("lda,vwn", [0], 1.0), krohf_kernel: (), kghf_kernel: (),
+            kmp2_stagger_energy: ({},)}
+    for fn in gamma_fns + k_fns:
+        system = gsys if fn in gamma_fns else ksys
+        with pytest.raises(ValueError, match="lives on cpu"):
+            fn(system, *args[fn], device="cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn in gamma_fns + k_fns:
+        system = gsys if fn in gamma_fns else ksys
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(system, *args[fn])
+    assert rohf_kernel(gsys, nelec=(5, 3), device="cpu")["converged"]
+    assert kghf_kernel(ksys, device="cpu", max_cycle=3)["niter"] == 3

@@ -98,8 +98,10 @@ def test_coulomb_kernels(systems, exxdiv, omega):
     assert abs(coulomb.madelung(cell, kpts) - ref_coulomb.madelung(rcell, kpts)) < 1e-12
     assert np.abs(port.coulG_pairs.numpy() - ref.coulG_pairs).max() < 1e-12
     assert np.abs(port.expmikr.numpy() - ref.expmikr).max() < 1e-12
-    with pytest.raises(NotImplementedError):
-        coulomb.get_coulG(cell, k=q, exxdiv="vcut_sph", kpts=kpts)
+    # 'vcut_sph' at a k-point transfer: the radius from the k-mesh's size
+    cut = coulomb.get_coulG(cell, k=q, exxdiv="vcut_sph", kpts=kpts)
+    assert np.abs(cut - ref_coulomb.get_coulG(rcell, k=q, exxdiv="vcut_sph",
+                                              kpts=kpts)).max() < 1e-12
 
 
 def test_kconserv():
@@ -186,7 +188,7 @@ def test_ragged_orthogonalizers(systems):
 
 def test_unported_options_raise(systems):
     _, _, cell, port, kpts = systems
-    for kw in (dict(hubbard={"C 2p": 0.1}), dict(isdf_precision="dd", df="isdf_q"),
+    for kw in (dict(df="aegdf"), dict(isdf_precision="dd", df="isdf_q"),
                dict(xc_grids="becke"), dict(exxdiv="vcut_sph"), dict(df="gdf")):
         with pytest.raises(NotImplementedError):
             kscf_kernel(port, device="cpu", **{"xc": "pbe0", **kw})
