@@ -125,7 +125,26 @@ run from the root of a checkout. Phases, each of which fails the script:
      counts): ROHF/ROKS, KROHF, KGHF (collinear and odd count), DFT+U,
      cDFT (each device's multiplier meets the target to 1e-6, and the SCF
      at the card's multiplier is held), hybrid and range-separated
-     bands, and the submesh stagger.
+     bands, and the submesh stagger;
+ 12. Becke XC, Gaussian density fitting, PME, low-dimensional Coulomb and
+     the all-electron analytic stack: (a) on phase 5's cell, the system
+     built again and scf_kernel(xc='pbe0', df='isdf-robust', isdf_c=16,
+     xc_grids='becke', conv_tol=1e-8) with the launch counters zeroed
+     around both (K1 on the main grid and on the Becke cloud, K2 once an
+     iteration): the cloud's points, grid and AO seconds, the median XC
+     ms beside phase 5's, the weights' sum against the cell volume (2e-3
+     relative), E_becke - E_uniform (BECKE_E_BAR); (b) scf_kernel(xc=
+     'pbe0', df='gdf', conv_tol=1e-8) on phase 5's system, K1 collocating
+     the l <= 4 auxiliary basis: naux, the build's seconds by stage, the
+     median J+K ms, E_gdf - E_phase5 (GDF_E_BAR), then K1 at that shape
+     against its plain version (1e-12 absolute) and timed with its bound
+     and ptxas line; (c) PME against the Ewald sum on phase 5's cell
+     (1e-6 Ha); (d) card against CPU on the reference tests' small cells
+     (1e-8 Ha, equal iteration counts): the 2-D slab RKS (and its golden
+     to 1e-7), a 0-D He box and a 1-D wire, RHF with 'vcut_ws', KRHF
+     'gdf', Becke KRKS and UKS, aegdf RHF, UHF and KRHF 2x1x1 (and the
+     latter against its supercell, 1e-6 Ha), the sfX2C-1e hcore RHF, and
+     AFTDF and KAFTDF J/K against FFTDF (1e-8 relative).
 
 It prints the kernels' JSON summary and, as its last line,
 {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -228,9 +247,12 @@ def check_k1(torch, name, ev, dtype):
     return err
 
 
-def time_k1(torch, cell, ev, label, ptxas):
-    """CUDA-event times of K1 and its plain version on one float64 plan,
-    the work evaluated and needed, and the bound on the needed work."""
+def time_k1(torch, cell, ev, label, ptxas, plain_reps=3, rcut_precision=None,
+            coords=None):
+    """CUDA-event times of K1 and its plain version (``plain_reps`` timed
+    calls after one warm-up) on one float64 plan (on the uniform grid, or
+    on ``coords``), the work evaluated and needed, and the bound on the
+    needed work."""
     from pyscf_isdf_tpu_torch.ops import cuda_ao
 
     def run_kernel():
@@ -242,19 +264,21 @@ def time_k1(torch, cell, ev, label, ptxas):
             cuda_ao.collocate_plain(*args)
 
     res = dict(ms=cuda_time_ms(run_kernel, reps=7),
-               plain_ms=cuda_time_ms(run_plain, reps=3))
-    work = cuda_ao.collocation_work(cell, ev.plans, ev.dest, device="cuda")
+               plain_ms=cuda_time_ms(run_plain, reps=plain_reps))
+    work = cuda_ao.collocation_work(cell, ev.plans, ev.dest, device="cuda",
+                                    rcut_precision=rcut_precision or cuda_ao.RCUT_PRECISION,
+                                    coords=coords)
+    ng = cell.ngrids if coords is None else len(coords)
     # bytes: the grid coordinates read once, the AO rows written once;
     # operations: FP64 instructions, an FMA counted as two flops
-    nbytes = (3 + sum(p.ns * p.K * (2 * p.l + 1) for p in ev.plans)) \
-        * cell.ngrids * 8
+    nbytes = (3 + sum(p.ns * p.K * (2 * p.l + 1) for p in ev.plans)) * ng * 8
     need, done = work["needed"], work["evaluated"]
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 2 * need["fp64_instr"], "fp64")
     eval_ms, _ = bound_ms(nbytes, 2 * done["fp64_instr"], "fp64")
     regs = "; ".join(f"l={p.l} K={p.K}: {ptxas[('d', p.l, p.K)][0]} registers, "
                      f"{ptxas[('d', p.l, p.K)][1]} B spilled"
                      for p in ev.plans if ("d", p.l, p.K) in ptxas)
-    log(f"K1 {label} f64 (nao={cell.nao} ng={cell.ngrids}): kernel "
+    log(f"K1 {label} f64 (nao={cell.nao} ng={ng}): kernel "
         f"{res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, bound "
         f"{res['bound_ms']:.3f} ms ({res['bound_by']}; needed: {need['exp']} exp, "
         f"{need['pairs']} pairs, {need['fp64_instr']} FP64 instr; {nbytes} B); "
@@ -447,7 +471,8 @@ def phase_main(torch):
     check(res["converged"], "main-path SCF did not converge")
     check(deficit < 1e-3, f"robust-K trace deficit {deficit:.3e} Ha >= 1e-3")
     return dict(launches=launches, n_ip=res["isdf"].n_ip, system=system, res=res,
-                tr_fft=tr_fft, deficit=signed, select_s=sum(s["isdf_select"]))
+                tr_fft=tr_fft, deficit=signed, select_s=sum(s["isdf_select"]),
+                xc_ms=1e3 * statistics.median(s["XC"]))
 
 
 def phase_small_k(torch):
@@ -1677,6 +1702,273 @@ def phase_small_slice8(torch, devs=("cuda", "cpu")):
          counted=False)
 
 
+# phase 12: Becke XC, Gaussian DF, PME, low-dimensional Coulomb and the
+# all-electron analytic stack. The sanity bars are 27 times (the supercell's
+# 27 primitive cells) the reference tests' per-cell bars.
+BECKE_E_BAR = 1.6e-2      # |E_becke - E_uniform|, tests/test_becke.py:253-266
+GDF_E_BAR = 5.4e-3        # |E_gdf - E_phase5|, tests/test_gdf.py:57-67
+SLAB_GOLDEN = -0.6252695697315944   # pyscf/pbc/dft/test/test_rks.py:121-141
+
+
+def sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_becke_main(torch, main, ptxas, dev="cuda"):
+    """12a: phase 5's SCF with the XC on the Becke cloud; K1 on the main
+    grid (the system build) and on the cloud, K2 once an iteration. Then
+    K1 on the cloud's plan, built as the SCF builds it, against its plain
+    version and timed."""
+    from pyscf_isdf_tpu_torch.ops import cuda_ao
+    from pyscf_isdf_tpu_torch.ops.cuda_robust_k import robust_k_cross
+    from pyscf_isdf_tpu_torch.scf import build_scf_system, scf_kernel
+    from pyscf_isdf_tpu_torch.utils.timing import StageTimer
+
+    timer = StageTimer(dev)
+    reset_peak(torch, dev)
+    cuda_ao.collocate.launches = 0
+    robust_k_cross.launches = 0
+    t0 = time.perf_counter()
+    system = build_scf_system(main["system"].cell, device=dev, timer=timer)
+    res = scf_kernel(system, xc="pbe0", df="isdf-robust", isdf_c=16, xc_grids="becke",
+                     conv_tol=1e-8, timer=timer)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = {"ao_collocate": cuda_ao.collocate.launches,
+                "robust_k_cross": robust_k_cross.launches}
+    bg, cell = res["becke"], system.cell
+    s = timer.seconds
+    ms = median_ms(timer)
+    dE = res["e_tot"] - main["res"]["e_tot"]
+    wsum = float(bg.weights.sum())
+    ao_stages = {k: sum(s[k]) for k in ("becke_ao_plan", "becke_k1", "becke_grad")}
+    log(f"12a Becke PBE0 robust ISDF c=16: {bg.size} points, grid build "
+        f"{sum(s['becke_grid']):.2f} s, AO values and gradients {sum(s['becke_ao']):.2f} s "
+        f"(K1 host plan {ao_stages['becke_ao_plan']:.2f} s, K1 launches "
+        f"{ao_stages['becke_k1']:.3f} s, gradients {ao_stages['becke_grad']:.2f} s), "
+        f"{res['niter']} iterations, median XC {ms['XC']:.2f} ms (phase 5 "
+        f"{main['xc_ms']:.2f} ms), cycle {ms['cycle']:.2f} ms, wall {wall:.1f} s, "
+        f"peak device memory {peak_gb(torch, dev):.2f} GB")
+    log(f"12a weights sum {wsum:.6f} against the cell volume {cell.vol:.6f} "
+        f"(rel {abs(wsum - cell.vol) / cell.vol:.2e}, bar 2e-3); E_becke "
+        f"{res['e_tot']:.10f}, E_becke - E_uniform = {dE:.3e} Ha (bar {BECKE_E_BAR}); "
+        f"launches {launches}")
+    check(res["converged"], "12a: the Becke SCF did not converge")
+    check(abs(wsum - cell.vol) < 2e-3 * cell.vol, "12a: Becke weights miss the volume")
+    check(abs(dE) < BECKE_E_BAR, f"12a: E_becke - E_uniform = {dE:.3e} Ha")
+    check(torch.device(dev).type != "cuda" or (
+        launches["ao_collocate"] > 0 and launches["robust_k_cross"] >= res["niter"]),
+        f"12a: kernel launches {launches}")
+    out = dict(launches=launches, points=bg.size, niter=res["niter"], dE=dE,
+               xc_ms=ms["XC"], grid_s=sum(s["becke_grid"]), ao_s=sum(s["becke_ao"]),
+               **ao_stages)
+    del res, system
+    if torch.device(dev).type != "cuda":
+        return out
+    torch.cuda.empty_cache()
+    # the plan of ops/becke.eval_ao_and_grad at Gamma
+    ev = cuda_ao.make_ao_evaluator(cell, coords=bg.coords, device=dev, drop=cuda_ao.DROP,
+                                   rcut_precision=cuda_ao.TIGHT_RCUT_PRECISION)
+    out["err"] = check_k1(torch, f"Becke cloud slab plan ({bg.size} points)", ev,
+                          torch.float64)
+    out["k1"] = time_k1(torch, cell, ev, "Becke cloud, slab plan", ptxas, plain_reps=1,
+                        rcut_precision=cuda_ao.TIGHT_RCUT_PRECISION, coords=bg.coords)
+    del ev
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_gdf_main(torch, main, ptxas, dev="cuda"):
+    """12b: phase 5's system with J and K from the grid GDF fit (K1 on
+    the l <= 4 auxiliary basis), then K1 at that shape against its plain
+    version and timed."""
+    from pyscf_isdf_tpu_torch.df.gdf import make_auxcell
+    from pyscf_isdf_tpu_torch.ops import cuda_ao
+    from pyscf_isdf_tpu_torch.scf import scf_kernel
+    from pyscf_isdf_tpu_torch.utils.timing import StageTimer
+
+    timer = StageTimer(dev)
+    reset_peak(torch, dev)
+    cuda_ao.collocate.launches = 0
+    t0 = time.perf_counter()
+    res = scf_kernel(main["system"], xc="pbe0", df="gdf", conv_tol=1e-8, timer=timer)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = cuda_ao.collocate.launches
+    s = timer.seconds
+    ms = median_ms(timer, ("cycle", "JK", "XC", "eigh"))
+    cell = main["system"].cell
+    auxcell = make_auxcell(cell)
+    dE = res["e_tot"] - main["res"]["e_tot"]
+    stages = ("aux_plan", "aux_ao", "aux_fft", "j2c", "j3c", "eigh", "whiten")
+    log(f"12b GDF PBE0: naux {auxcell.nao} (kept {res['gdf'].naux}; per l "
+        + ", ".join(f"{l}: {sum(sh.nao for sh in auxcell.shells if sh.l == l)}"
+                    for l in range(5)) + "), build seconds "
+        + ", ".join(f"{k}={sum(s[k]):.3f}" for k in stages if k in s)
+        + f"; {res['niter']} iterations, median J+K {ms['JK']:.2f} ms, cycle "
+        f"{ms['cycle']:.2f} ms, wall {wall:.1f} s, peak device memory "
+        f"{peak_gb(torch, dev):.2f} GB")
+    log(f"12b E_gdf {res['e_tot']:.10f}, E_gdf - E_phase5 = {dE:.3e} Ha (bar "
+        f"{GDF_E_BAR}); K1 launches {launches}")
+    check(res["converged"], "12b: the GDF SCF did not converge")
+    check(abs(dE) < GDF_E_BAR, f"12b: E_gdf - E_phase5 = {dE:.3e} Ha")
+    check(torch.device(dev).type != "cuda" or launches > 0,
+          "12b: K1 was not launched on the auxiliary basis")
+    niter = res["niter"]
+    del res
+    if torch.device(dev).type != "cuda":
+        return dict(launches=launches, niter=niter, dE=dE, jk_ms=ms["JK"])
+    torch.cuda.empty_cache()
+    ev = cuda_ao.make_ao_evaluator(auxcell, device=dev,
+                                   rcut_precision=cuda_ao.TIGHT_RCUT_PRECISION)
+    check(max(p.l for p in ev.plans) == 4, "12b: no l = 4 auxiliary functions")
+    err = check_k1(torch, "GDF auxiliary basis (l <= 4) bricks", ev, torch.float64)
+    k1 = time_k1(torch, auxcell, ev, "GDF auxiliary basis (l <= 4), bricks", ptxas,
+                 plain_reps=1, rcut_precision=cuda_ao.TIGHT_RCUT_PRECISION)
+    del ev
+    torch.cuda.empty_cache()
+    return dict(launches=launches, niter=niter, dE=dE, err=err, k1=k1,
+                jk_ms=ms["JK"], naux=auxcell.nao)
+
+
+def phase_pme(torch, cell, dev="cuda"):
+    """12c: particle-mesh Ewald on the card against the exact Ewald sum."""
+    from pyscf_isdf_tpu_torch.ops import coulomb
+    from pyscf_isdf_tpu_torch.ops.pme import particle_mesh_ewald
+
+    t0 = time.perf_counter()
+    e_pme = particle_mesh_ewald(cell, device=dev)
+    dt = time.perf_counter() - t0
+    e = coulomb.ewald(cell)
+    log(f"12c PME {e_pme:.10f} against Ewald {e:.10f}: |diff| {abs(e_pme - e):.3e} Ha "
+        f"(bar 1e-6), {dt:.2f} s")
+    check(abs(e_pme - e) < 1e-6, "12c: PME misses the Ewald sum")
+
+
+def phase_small_slice9(torch, devs=("cuda", "cpu")):
+    """12d: the slice's drivers on the reference tests' small cells, card
+    against CPU (``devs``): energies to 1e-8 Ha, equal iteration counts."""
+    import numpy as np
+
+    from pyscf_isdf_tpu_torch import build_cell, lattice
+    from pyscf_isdf_tpu_torch.df import aftdf, fftdf, fftdf_k
+    from pyscf_isdf_tpu_torch.models import diamond_primitive
+    from pyscf_isdf_tpu_torch.ops import coulomb
+    from pyscf_isdf_tpu_torch.ops.cuda_ao import make_ao_evaluator
+    from pyscf_isdf_tpu_torch.scf import (
+        build_kscf_system, build_scf_system, kscf_kernel, scf_kernel, uhf_kernel,
+    )
+    from pyscf_isdf_tpu_torch.scf.x2c import sfx2c1e_hcore
+
+    def same(label, run):
+        e, n = [], []
+        for dev in devs:
+            res = run(dev)
+            check(res["converged"], f"12d {label} on {dev} did not converge")
+            e.append(res["e_tot"])
+            n.append(res["niter"])
+        diff = abs(e[0] - e[1])
+        log(f"12d {label}: card {e[0]:.12f}, cpu {e[1]:.12f}, |diff| {diff:.3e} "
+            f"(bar 1e-8), iterations {n[0]} / {n[1]}")
+        check(diff < 1e-8, f"12d {label}: card != CPU")
+        check(n[0] == n[1], f"12d {label}: iteration counts differ")
+        return e[0]
+
+    def gamma(cell, ae=False, **kw):
+        return lambda dev: scf_kernel(build_scf_system(cell, device=dev, ae=ae),
+                                      conv_tol=1e-10, **kw)
+
+    a = np.eye(3) * 4.0
+    a[2, 2] = 12.0
+    slab = build_cell(a, "H 0 0 0; H .8 .8 0", basis=[[0, (4.0, 1.0)], [0, (1.0, 1.0)]],
+                      dimension=2)
+    e = same("RKS LDA H2 slab (tests/test_lowdim.py:33)", gamma(slab, xc="lda,vwn"))
+    log(f"12d slab golden {SLAB_GOLDEN}: |diff| {abs(e - SLAB_GOLDEN):.3e} (bar 1e-7)")
+    check(abs(e - SLAB_GOLDEN) < 1e-7, "12d: the slab RKS misses its golden")
+    basis3 = [[0, (3.0, 1.0)], [0, (0.8, 1.0)], [0, (0.25, 1.0)]]
+    box = build_cell(np.eye(3) * 8.0, [["He", (4.0, 4.0, 4.0)]], basis=basis3,
+                     mesh=[20] * 3, dimension=0)
+    same("RHF He in a box (dimension 0)", gamma(box, xc=None, exxdiv=None))
+    wire = build_cell(np.diag([6.0, 8.0, 8.0]), [["He", (3.0, 4.0, 4.0)]], basis=basis3,
+                      mesh=[16, 20, 20], dimension=1)
+    same("RHF He wire (dimension 1)", gamma(wire, xc=None, exxdiv="ewald"))
+    he2 = build_cell(np.eye(3) * 4.0, "He 0 0 0; He 1 1 1",
+                     basis=[[0, (1.0, 1.0)], [0, (0.5, 1.0)]], mesh=[9, 9, 9])
+    same("RHF exxdiv='vcut_ws' (tests/test_scf_rhf.py:47)",
+         gamma(he2, xc=None, exxdiv="vcut_ws"))
+
+    dcell = diamond_primitive(mesh=(9, 9, 9))
+    dk = lattice.make_kpts(dcell.a, [1, 1, 2], with_gamma_point=False)
+    dsys = {dev: build_kscf_system(dcell, dk, device=dev) for dev in set(devs)}
+    same("KRHF df='gdf' diamond 9^3 (1,1,2)",
+         lambda dev: kscf_kernel(dsys[dev], xc=None, df="gdf", conv_tol=1e-10, device=dev))
+    same("KRKS LDA Becke diamond 9^3 (1,1,2)",
+         lambda dev: kscf_kernel(dsys[dev], xc="lda,vwn", xc_grids="becke:20,8",
+                                 conv_tol=1e-10, device=dev))
+    c2 = build_cell([[0.0, 1.7834, 1.7834], [1.7834, 0.0, 1.7834], [1.7834, 1.7834, 0.0]],
+                    [["C", (0.0, 0.0, 0.0)], ["C", (0.93, 0.87, 0.90)]], "gth-szv",
+                    pseudo="gth-pade", mesh=(10, 10, 10), unit="Angstrom")
+    same("UKS PBE Becke two-carbon cell (6, 2)",
+         lambda dev: uhf_kernel(build_scf_system(c2, device=dev), xc="pbe", nelec=(6, 2),
+                                xc_grids="becke:20,8", conv_tol=1e-10))
+
+    # AFTDF and KAFTDF against FFTDF (J/K at one density, relative)
+    comp = build_cell(np.eye(3) * 5.0, [["C", (1.0, 2.0, 2.4)], ["C", (3.1, 2.2, 2.0)]],
+                      basis=[[0, (2.0, 1.0)], [0, (0.9, 1.0)], [1, (1.1, 1.0)]],
+                      pseudo="gth-pade", mesh=[24] * 3)
+    nao = comp.nao
+    dm = 2.0 / nao * np.eye(nao) + 0.01 * np.fromfunction(
+        lambda i, j: np.cos(i + 2 * j) + np.cos(2 * i + j), (nao, nao))
+    dm = 0.5 * (dm + dm.T)
+    ck = lattice.make_kpts(comp.a, [2, 1, 1], with_gamma_point=False)
+
+    def rel(x, y):
+        return float((x - y).abs().max() / y.abs().max())
+
+    dev = devs[0]
+    aoR = make_ao_evaluator(comp, device=dev)()
+    d = torch.as_tensor(dm, device=dev)
+    g = torch.as_tensor(coulomb.get_coulG(comp), device=dev)
+    vj, vk = aftdf.AFTDF(comp, device=dev).get_jk(dm)
+    errs = (rel(vj, fftdf.get_j(aoR, d, g, comp.mesh, comp.grid_weight)),
+            rel(vk, fftdf.get_k(aoR, d, g, comp.mesh, comp.grid_weight)))
+    ksys = build_kscf_system(comp, ck, device=dev)
+    dmk = torch.stack([d, d]).to(torch.complex128)
+    kj, kk = aftdf.KAFTDF(comp, ck, device=dev).get_jk(dmk)
+    errs += (rel(kj, fftdf_k.get_j_kpts(ksys.aoR_k, dmk, ksys.coulG, ksys.mesh, ksys.weight)),
+             rel(kk, fftdf_k.get_k_kpts(ksys.aoR_k, dmk, ksys.coulG_pairs, ksys.expmikr,
+                                        ksys.mesh, ksys.weight / len(ck))))
+    log("12d AFTDF against FFTDF (compact C2 24^3): J {:.2e}, K {:.2e}; KAFTDF (2x1x1): "
+        "J {:.2e}, K {:.2e} relative (bar 1e-8)".format(*errs))
+    check(max(errs) < 1e-8, "12d: AFTDF/KAFTDF miss FFTDF")
+    del aoR, ksys
+
+    he = build_cell(np.eye(3) * 6.0, [["He", (0.0, 0.0, 0.0)]], "sto-3g", ke_cutoff=200.0)
+    same("RHF aegdf all-electron He solid", gamma(he, xc=None, df="aegdf", ae=True))
+    same("UHF aegdf all-electron He solid",
+         lambda dev: uhf_kernel(build_scf_system(he, device=dev, ae=True), xc=None,
+                                df="aegdf", conv_tol=1e-10))
+    hk = lattice.make_kpts(he.a, [2, 1, 1])
+    e_k = same("KRHF aegdf He solid 2x1x1",
+               lambda dev: kscf_kernel(build_kscf_system(he, hk, device=dev, ae=True),
+                                       xc=None, df="aegdf", conv_tol=1e-10, device=dev))
+    sc = build_cell(np.diag([12.0, 6.0, 6.0]), [["He", (0.0, 0.0, 0.0)], ["He", (6.0, 0.0, 0.0)]],
+                    "sto-3g", ke_cutoff=200.0)
+    e_sc = scf_kernel(build_scf_system(sc, device=dev, ae=True), xc=None, df="aegdf",
+                      conv_tol=1e-10)["e_tot"]
+    log(f"12d KRHF 2x1x1 {e_k:.10f} against its supercell / 2 {e_sc / 2:.10f}: "
+        f"|diff| {abs(e_k - e_sc / 2):.3e} (bar 1e-6)")
+    check(abs(e_k - e_sc / 2) < 1e-6, "12d: KRHF aegdf misses its supercell")
+
+    def x2c_scf(dev):
+        system = build_scf_system(he, device=dev, ae=True)
+        _, h = sfx2c1e_hcore(he, system.ae_omega, device=dev)
+        return scf_kernel(dataclasses.replace(system, hcore=h), xc=None, df="aegdf",
+                          conv_tol=1e-10)
+    same("RHF aegdf on the sfX2C-1e hcore, He solid", x2c_scf)
+
+
 def main():
     try:
         import torch
@@ -1772,11 +2064,23 @@ def main():
         log(f"{name}: {time.perf_counter() - t0:.1f} s, peak device memory "
             f"{peak_gb(torch, 'cuda'):.2f} GB (phase 5's system and phase 7's k-system "
             "resident)")
-    del ksys, krks, krhf, main_path
+    del ksys, krks, krhf
     torch.cuda.empty_cache()
     slice8 = {"ao_collocate": collocate.launches, "robust_k_cross": robust_k_cross.launches}
     log(f"phase 11: {time.perf_counter() - t11:.1f} s, launches {slice8}")
     check(slice8["ao_collocate"] > 0, "phase 11: K1 was not launched by the card's builds")
+    t12 = time.perf_counter()
+    ptxas = k1_ptxas()
+    becke = phase_becke_main(torch, main_path, ptxas)
+    torch.cuda.empty_cache()
+    gdf = phase_gdf_main(torch, main_path, ptxas)
+    phase_pme(torch, main_path["system"].cell)
+    del main_path
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_small_slice9(torch)
+    log(f"12d: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 12: {time.perf_counter() - t12:.1f} s")
 
     kernels = [
         dict(name="ao_collocate", route="cuda",
@@ -1789,7 +2093,16 @@ def main():
              hse06=dict(launches=rsh["launches"]["ao_collocate"]),
              open_shell=dict(launches=spin["k1_small"]),
              mp2=dict(launches=mp2["k1_small"]),
-             slice8=dict(launches=slice8["ao_collocate"])),
+             slice8=dict(launches=slice8["ao_collocate"]),
+             slice9=dict(launches=dict(becke=becke["launches"]["ao_collocate"],
+                                       gdf=gdf["launches"])),
+             becke_cloud=dict(max_abs_err=becke["err"], ms=becke["k1"]["ms"],
+                              plain_ms=becke["k1"]["plain_ms"],
+                              bound_ms=becke["k1"]["bound_ms"],
+                              bound_by=becke["k1"]["bound_by"], library_ms=None),
+             aux_l4=dict(max_abs_err=gdf["err"], ms=gdf["k1"]["ms"],
+                         plain_ms=gdf["k1"]["plain_ms"], bound_ms=gdf["k1"]["bound_ms"],
+                         bound_by=gdf["k1"]["bound_by"], library_ms=None)),
         dict(name="robust_k_cross", route="cuda",
              source="pyscf_isdf_tpu_torch/csrc/robust_k.cu",
              replaces="pyscf_isdf_tpu/ops/pallas_robust_k.py:41",
@@ -1805,7 +2118,8 @@ def main():
                         shape=rsh["shape"]),
              open_shell=dict(launches=spin["k2"], uks=spin["uks"],
                              triplet=spin["triplet"]),
-             slice8=dict(launches=slice8["robust_k_cross"])),
+             slice8=dict(launches=slice8["robust_k_cross"]),
+             slice9=dict(launches=dict(becke=becke["launches"]["robust_k_cross"]))),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

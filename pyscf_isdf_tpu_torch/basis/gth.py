@@ -103,10 +103,21 @@ def load_basis(basis_name: str, symbol: str) -> list[tuple[int, np.ndarray, np.n
     ``remove_zero`` behavior, pyscf/gto/basis/parse_nwchem.py).
     """
     key = basis_name.lower()
-    if not key.startswith("gth"):
-        raise NotImplementedError(
-            f"basis {basis_name!r}: only the GTH families are ported")
-    entries = _load_json("gth_basis.json").get(key, {}).get(symbol)
+    if key.startswith("sto-"):
+        entries = _load_json("sto_basis.json").get(key, {}).get(symbol)
+    elif key.startswith("gth"):
+        entries = _load_json("gth_basis.json").get(key, {}).get(symbol)
+    else:
+        # general all-electron families (cc-pVnZ, def2, Pople, ...):
+        # NWChem-format data files through the general parser
+        from pyscf_isdf_tpu_torch.basis import nwchem
+
+        table = nwchem.load(key)
+        if table is None:
+            raise KeyError(
+                f"unknown basis {basis_name!r}; have GTH families, "
+                f"STO-nG, and {nwchem.available()}")
+        entries = table.get(symbol)
     if entries is None:
         raise KeyError(f"no {basis_name} entry for element {symbol}")
     shells = []

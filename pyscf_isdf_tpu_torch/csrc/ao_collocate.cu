@@ -46,7 +46,7 @@ constexpr int kThreads = 128;
 __device__ __forceinline__ double gexp(double x) { return exp(x); }
 __device__ __forceinline__ float gexp(float x) { return expf(x); }
 
-// Real solid harmonics S_Lm (l <= 3), the reference's component order.
+// Real solid harmonics S_Lm (l <= 4), the reference's component order.
 template <typename T, int L>
 __device__ __forceinline__ void solid_harmonics(T dx, T dy, T dz, T* ang) {
   if constexpr (L == 0) {
@@ -65,7 +65,7 @@ __device__ __forceinline__ void solid_harmonics(T dx, T dy, T dz, T* ang) {
     ang[2] = c1 * (T(2) * dz * dz - dx * dx - dy * dy);
     ang[3] = c0 * dx * dz;
     ang[4] = c2 * (dx * dx - dy * dy);
-  } else {
+  } else if constexpr (L == 3) {
     const T c_3 = T(0.5900435899266435);              // sqrt(35/(32 pi))
     const T c_2 = T(2.890611442640554);               // sqrt(105/(4 pi))
     const T c_1 = T(0.4570457994644658);              // sqrt(21/(32 pi))
@@ -79,6 +79,31 @@ __device__ __forceinline__ void solid_harmonics(T dx, T dy, T dz, T* ang) {
     ang[4] = c_1 * dx * (T(4) * z2 - x2 - y2);
     ang[5] = c2 * dz * (x2 - y2);
     ang[6] = c_3 * dx * (x2 - T(3) * y2);
+  } else {
+    const T c_4 = T(2.5033429417967046);              // 3/4 sqrt(35/pi)
+    const T c_3 = T(1.7701307697799304);              // 3/4 sqrt(35/(2 pi))
+    const T c_2 = T(0.9461746957575601);              // 3/4 sqrt(5/pi)
+    const T c_1 = T(0.6690465435572892);              // 3/4 sqrt(5/(2 pi))
+    const T c0 = T(0.10578554691520431);              // 3/(16 sqrt(pi))
+    const T c2 = T(0.47308734787878004);              // 3/8 sqrt(5/pi)
+    const T c4 = T(0.6258357354491761);               // 3/16 sqrt(35/pi)
+    const T x2 = dx * dx, y2 = dy * dy, z2 = dz * dz;
+    const T r2 = x2 + y2 + z2;
+    const T xy = dx * dy, yz = dy * dz, xz = dx * dz;
+    const T a = x2 - y2;
+    const T b = T(7) * z2 - r2;
+    const T c = T(7) * z2 - T(3) * r2;
+    const T p = T(3) * x2 - y2;
+    const T q = x2 - T(3) * y2;
+    ang[0] = c_4 * xy * a;
+    ang[1] = c_3 * yz * p;
+    ang[2] = c_2 * xy * b;
+    ang[3] = c_1 * yz * c;
+    ang[4] = c0 * (T(35) * z2 * z2 - T(30) * z2 * r2 + T(3) * r2 * r2);
+    ang[5] = c_1 * xz * c;
+    ang[6] = c2 * a * b;
+    ang[7] = c_3 * xz * q;
+    ang[8] = c4 * (x2 * q - y2 * p);
   }
 }
 
@@ -236,6 +261,7 @@ int launch(int l, int K, int P, int ns, int nb, int NB, int imax, int ng,
     case 1: err = launch_l<T, 1>(K, P, ns, nb, NB, imax, ng, c, np, cu, ce, ex, co, xyz, d, im, o, st); break;
     case 2: err = launch_l<T, 2>(K, P, ns, nb, NB, imax, ng, c, np, cu, ce, ex, co, xyz, d, im, o, st); break;
     case 3: err = launch_l<T, 3>(K, P, ns, nb, NB, imax, ng, c, np, cu, ce, ex, co, xyz, d, im, o, st); break;
+    case 4: err = launch_l<T, 4>(K, P, ns, nb, NB, imax, ng, c, np, cu, ce, ex, co, xyz, d, im, o, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -18,12 +18,15 @@ that number. Two planners fill the same kernel arguments:
   are compact bricks of at most 8x8x8 points (each axis is cut at the
   FFT-order wrap, index ceil(n/2), so no brick spans the cell). Per
   (shell, brick) it keeps the reference's image cull (images within
-  rcut + brick radius of the brick centre), and then per kept image the
+  rcut + brick radius of the brick centre, rcut the radius where the
+  shell's most diffuse term falls below ``rcut_precision``, the
+  reference's :data:`RCUT_PRECISION` by default), and then per kept
+  image the
   prefix of the shell's primitives, sorted most diffuse first, that
   contains every primitive whose bound over the brick,
   max_k |c_pk| exp(-a_p d_min^2) max(1, r_max)^l, reaches :data:`DROP`
   (d_min, r_max: nearest and farthest distance from the image centre to
-  the brick). Since |S_lm(d)| <= |d|^l for l <= 3, every dropped term is
+  the brick). Since |S_lm(d)| <= |d|^l for l <= 4, every dropped term is
   below DROP = 1e-16 in absolute value at every point of the brick. An
   image with no primitive left leaves the list. It also sets a per-shell
   cut: a point stops at its first primitive with -a r^2 below it, where
@@ -64,16 +67,22 @@ from pyscf_isdf_tpu_torch.ops import cuda_lib
 from pyscf_isdf_tpu_torch.ops.ao_eval import PackedBasis, shell_rcut
 from pyscf_isdf_tpu_torch.ops.solid_harmonics import solid_harmonics
 
-MAX_L = 3          # kernel instantiations: l = 0..3
+MAX_L = 4          # kernel instantiations: l = 0..4
 MAX_K = 4          # and 1..4 contractions per shell
 BRICK = 8          # brick edge (points) of the uniform-grid planner
 DROP = 1e-16       # bound on each primitive term the brick planner drops
+# the reference's image radius: where a shell's most diffuse term falls
+# below this. At 1e-10 the diffuse l = 4 auxiliary functions of Gaussian
+# density fitting miss their full image sum by 2.2e-12, and the AOs on a
+# Becke cloud by 2.8e-12: those two take the tighter radius
+RCUT_PRECISION = 1e-10
+TIGHT_RCUT_PRECISION = 1e-11
 
 # FP64 instructions of one exp(double) on sm_90a (nvcc 12.8) on its path for
 # arguments in [-708, 0]: 14 DFMA and 1 DADD (SASS, tools/k1_exp_probe.cu)
 EXP_FP64_INSTR = 15
 # per (point, image) pair: displacement (3) and r^2 (3), the harmonics
-_ANG_INSTR = {0: 0, 1: 3, 2: 12, 3: 26}
+_ANG_INSTR = {0: 0, 1: 3, 2: 12, 3: 26, 4: 38}
 
 
 @dataclass(frozen=True, eq=False)
@@ -101,14 +110,15 @@ def _block_geometry(coords, dest):
     return bcent, brad
 
 
-def _plan_l(cell, packed, l, shells, images, bcent, brad, imax, drop):
+def _plan_l(cell, packed, l, shells, images, bcent, brad, imax, drop,
+            rcut_precision=RCUT_PRECISION):
     """Cull images per (shell, block); with ``drop`` also primitives."""
     nb = bcent.shape[0]
     ns = len(shells)
     centers, exps, coeffs = packed.centers[l], packed.exps[l], packed.coeffs[l]
     P, K = exps.shape[1], coeffs.shape[2]
     M = 2 * l + 1
-    rcuts = np.array([shell_rcut(sh) for _, sh in shells])
+    rcuts = np.array([shell_rcut(sh, rcut_precision) for _, sh in shells])
     # |t - b|^2 = |t|^2 + |b|^2 - 2 t.b with the cross term as a
     # batched GEMM (a broadcast difference array is a large temporary)
     tc = centers[:, None, :] + images[None, :, :]              # (ns, nimg, 3)
@@ -183,15 +193,15 @@ def _plan_l(cell, packed, l, shells, images, bcent, brad, imax, drop):
                   cuts=cuts, cols=np.array(cols, dtype=np.int64))
 
 
-def _plans(cell, coords, dest, imax, drop):
+def _plans(cell, coords, dest, imax, drop, rcut_precision=RCUT_PRECISION):
     packed = PackedBasis.from_cell(cell)
     images = cell.lattice_images()
     bcent, brad = _block_geometry(coords, dest)
     groups: dict[int, list] = {}
     for ish, sh in enumerate(cell.shells):
         groups.setdefault(sh.l, []).append((ish, sh))
-    return [_plan_l(cell, packed, l, groups[l], images, bcent, brad, imax, drop)
-            for l in packed.ls]
+    return [_plan_l(cell, packed, l, groups[l], images, bcent, brad, imax, drop,
+                    rcut_precision) for l in packed.ls]
 
 
 def slab_slots(ng: int, block: int = 512) -> np.ndarray:
@@ -244,13 +254,13 @@ def brick_slots(mesh) -> np.ndarray:
     return np.array(slots, dtype=np.int64)
 
 
-def plan_ao_bricks(cell, drop: float = DROP):
+def plan_ao_bricks(cell, drop: float = DROP, rcut_precision: float = RCUT_PRECISION):
     """Host planning on the uniform grid: compact bricks, images culled per
     (shell, brick), then primitives per image (terms below ``drop`` over
     the whole brick; ``drop=0`` keeps them all). Returns (per-l plans,
     slots (nb, BRICK**3))."""
     dest = brick_slots(cell.mesh)
-    return _plans(cell, cell.uniform_grid(), dest, None, drop), dest
+    return _plans(cell, cell.uniform_grid(), dest, None, drop, rcut_precision), dest
 
 
 def _instr(l: int, K: int, pairs, n_exp):
@@ -261,15 +271,18 @@ def _instr(l: int, K: int, pairs, n_exp):
         + n_exp * (1 + EXP_FP64_INSTR + K)
 
 
-def needed_work(cell, device=None) -> dict:
-    """What the inputs need on the uniform grid, whatever the blocks: the
+def needed_work(cell, device=None, rcut_precision: float = RCUT_PRECISION,
+                coords=None) -> dict:
+    """What the inputs need on the uniform grid (or on ``coords``), whatever
+    the blocks: the
     (point, image, primitive) triples with the image within the shell's
-    rcut of the point and max_k |c_pk| exp(-a_p r^2) max(1, r)^l >= DROP,
+    rcut (at ``rcut_precision``) of the point and max_k |c_pk| exp(-a_p r^2) max(1, r)^l >= DROP,
     and the (point, image) pairs with at least one such primitive. Chunked
     torch on ``device``; measurement code, called by nothing on the main
     path."""
     device = resolve_device(device)
-    coords = cell.uniform_grid()
+    if coords is None:
+        coords = cell.uniform_grid()
     packed = PackedBasis.from_cell(cell)
     images = cell.lattice_images()
     kw = dict(dtype=torch.float64, device=device)
@@ -285,7 +298,7 @@ def needed_work(cell, device=None) -> dict:
         for sh in cell.shells:
             if sh.l != l:
                 continue
-            rc = shell_rcut(sh)
+            rc = shell_rcut(sh, rcut_precision)
             cmax = np.abs(sh.coeffs).max(axis=1)
             alive = cmax > 0
             a = torch.as_tensor(sh.exps[alive], **kw)
@@ -307,14 +320,15 @@ def needed_work(cell, device=None) -> dict:
     return dict(exp=n_exp, pairs=pairs, fp64_instr=instr)
 
 
-def collocation_work(cell, plans, dest, device=None) -> dict:
+def collocation_work(cell, plans, dest, device=None,
+                     rcut_precision: float = RCUT_PRECISION, coords=None) -> dict:
     """Work of kernel K1 on a plan and what its inputs need.
 
     ``evaluated``: the exponentials, (point, image) pairs and FP64
     instructions this plan lets the kernel run (slots with no point run
     nothing; the per-point cut can only lower the count); ``needed``:
     :func:`needed_work` of the inputs, the same for any plan of the same
-    cell and grid."""
+    cell and grid (the uniform grid, or ``coords``)."""
     npts = (np.asarray(dest) >= 0).sum(axis=1)                  # (nb,)
     n_exp = pairs = instr = 0
     for p in plans:
@@ -324,7 +338,7 @@ def collocation_work(cell, plans, dest, device=None) -> dict:
         pairs += pp
         instr += _instr(p.l, p.K, pp, pe)
     return dict(evaluated=dict(exp=n_exp, pairs=pairs, fp64_instr=instr),
-                needed=needed_work(cell, device))
+                needed=needed_work(cell, device, rcut_precision, coords))
 
 
 def _shapes(l, counts, nprim, cuts, centers, exps, coeffs, coordsT, dest, imgs):
@@ -429,23 +443,33 @@ collocate.launches = 0
 
 
 def make_ao_evaluator(cell, coords=None, block: int = 512,
-                      dtype=torch.float64, device=None):
+                      dtype=torch.float64, device=None, drop=None,
+                      rcut_precision: float = RCUT_PRECISION):
     """Plan once, evaluate many: returns ``fn() -> aoR (ngrids, nao)``.
 
     Host planning happens here: bricks on the uniform grid
-    (``coords=None``), the reference's slabs of ``block`` points for
-    explicit ``coords``. The returned callable launches one collocation
-    per l on pre-staged tensors. The staged per-l inputs are available as
-    ``fn.staged`` (a list of argument tuples of :func:`collocate`), the
-    plans and slots as ``fn.plans`` and ``fn.dest``.
+    (``coords=None``), slabs of ``block`` points for explicit ``coords``:
+    the reference's plan (every primitive of the images within the
+    reference's radius) by default, or with ``drop`` (e.g. :data:`DROP`)
+    the brick planner's cull on those slabs (terms below ``drop`` over a
+    slab dropped, nothing else). ``rcut_precision`` sets the image radius
+    of the brick plan and of the culled slabs (the reference's 1e-10 by
+    default). The returned callable launches one
+    collocation per l on pre-staged tensors. The staged per-l inputs are
+    available as ``fn.staged`` (a list of argument tuples of
+    :func:`collocate`), the plans and slots as ``fn.plans`` and
+    ``fn.dest``.
     """
     device = resolve_device(device)
     if coords is None:
-        plans, dest = plan_ao_bricks(cell)
+        plans, dest = plan_ao_bricks(cell, rcut_precision=rcut_precision)
         coords = cell.uniform_grid()
     else:
-        plans, _, _ = plan_ao_blocks(cell, coords, block)
         dest = slab_slots(coords.shape[0], block)
+        if drop is None:
+            plans, _, _ = plan_ao_blocks(cell, coords, block)
+        else:
+            plans = _plans(cell, coords, dest, None, drop, rcut_precision)
     ng = coords.shape[0]
     flat = dest.ravel()
     coordsT = torch.as_tensor(

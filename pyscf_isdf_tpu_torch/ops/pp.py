@@ -26,12 +26,16 @@ SQRT = np.sqrt
 
 
 def gth_vlocG(cell, Gv: np.ndarray) -> np.ndarray:
-    """(natm, ngrids) local PP v_loc(G) (positive-kernel convention):
-    erf-screened Coulomb with the -2 pi Z rloc^2 G=0 convention (3-D)."""
-    if cell.dimension != 3:
-        raise NotImplementedError("low-dimensional local pseudopotential")
+    """(natm, ngrids) local PP v_loc(G) (positive-kernel convention).
+
+    Erf-screened Coulomb with the -2 pi Z rloc^2 G=0 convention; a slab
+    (dimension 2) takes the Minary-Tuckerman slab summation (reference:
+    pyscf/pbc/gto/pseudo/pp_int.py:77-113).
+    """
     G2 = np.einsum("gi,gi->g", Gv, Gv)
     G0 = G2 == 0
+    if cell.dimension == 2:
+        return _gth_vlocG_slab(cell, Gv, G2, G0)
     vlocG = np.zeros((cell.natm, len(G2)))
     with np.errstate(divide="ignore"):
         coulG = 4 * np.pi / G2
@@ -45,6 +49,46 @@ def gth_vlocG(cell, Gv: np.ndarray) -> np.ndarray:
         rloc = pp.rloc
         vlocG[ia] *= np.exp(-0.5 * rloc**2 * G2)
         vlocG[ia, G0] = -2 * np.pi * Zia * rloc**2
+        vlocG[ia] -= _gth_c_terms(pp, G2)
+    return vlocG
+
+
+def _gth_vlocG_slab(cell, Gv, G2, G0):
+    """The slab's local PP: the erf-screened charge against the slab-
+    truncated kernel, summed in closed form along the normal."""
+    from scipy.special import erf, erfc, erfcx
+
+    from pyscf_isdf_tpu_torch.ops import coulomb as _coul
+
+    vlocG = np.zeros((cell.natm, len(G2)))
+    coulG = _coul.get_coulG(cell, Gv=Gv)
+    b = cell.reciprocal_vectors()
+    inv_area = np.linalg.norm(np.cross(b[0], b[1])) / (2 * np.pi) ** 2
+    lzd2 = cell.vol * inv_area / 2
+    lz = lzd2 * 2.0
+    G2s = np.where(G0, 1e200, G2)
+    Gxy = np.linalg.norm(Gv[:, :2], axis=1)
+    Gz = np.abs(Gv[:, 2])
+    for ia in range(cell.natm):
+        Zia = cell.charges[ia]
+        pp = cell.pseudos.get(cell.symbols[ia])
+        if pp is None:
+            vlocG[ia] = Zia * coulG
+            continue
+        rloc = pp.rloc
+        ew_eta = 1.0 / np.sqrt(2) / rloc
+        JexpG2 = 4 * np.pi / G2s * np.exp(-G2s / (4 * ew_eta**2))
+        fac = 4 * np.pi / G2s * np.cos(Gz * lzd2)
+        JexpG2 -= fac * np.exp(-Gxy * lzd2)
+        eta_z1 = (ew_eta**2 * lz + Gxy) / (2.0 * ew_eta)
+        eta_z2 = (ew_eta**2 * lz - Gxy) / (2.0 * ew_eta)
+        JexpG2 += fac * 0.5 * (np.exp(-eta_z1**2) * erfcx(eta_z2)
+                               + np.exp(-eta_z2**2) * erfcx(eta_z1))
+        vlocG[ia] = Zia * JexpG2
+        JexpG0 = (-np.pi * lz**2 / 2.0 * erf(ew_eta * lzd2)
+                  + np.pi / ew_eta**2 * erfc(ew_eta * lzd2)
+                  - np.sqrt(np.pi) * lz / ew_eta * np.exp(-((ew_eta * lzd2) ** 2)))
+        vlocG[ia, G0] = -2 * np.pi * Zia * rloc**2 + Zia * JexpG0
         vlocG[ia] -= _gth_c_terms(pp, G2)
     return vlocG
 

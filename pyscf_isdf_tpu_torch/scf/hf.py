@@ -22,7 +22,7 @@ import torch
 from pyscf_isdf_tpu_torch.cell import Cell
 from pyscf_isdf_tpu_torch.device import resolve_device
 from pyscf_isdf_tpu_torch.df import fftdf
-from pyscf_isdf_tpu_torch.ops import coulomb, pp as pp_ops
+from pyscf_isdf_tpu_torch.ops import becke as becke_mod, coulomb, pp as pp_ops
 from pyscf_isdf_tpu_torch.ops.ao_eval import ao_gradient_fft
 from pyscf_isdf_tpu_torch.ops.cuda_ao import make_ao_evaluator
 from pyscf_isdf_tpu_torch.ops.ft_ao import overlap_and_kinetic
@@ -48,6 +48,8 @@ class SCFSystem:
     weight: float            # vol / ngrids
     nelec: int
     Gv: torch.Tensor         # (ngrids, 3) for spectral gradients
+    ae: bool = False         # analytic all-electron S/hcore (df/aegdf.py)
+    ae_omega: float = 0.4    # SR/LR split of the analytic build
 
 
 def orthogonalizer(S: torch.Tensor) -> torch.Tensor:
@@ -58,11 +60,18 @@ def orthogonalizer(S: torch.Tensor) -> torch.Tensor:
 
 
 def build_scf_system(cell: Cell, device=None, dtype=torch.float64, aoR=None,
-                     timer=None) -> SCFSystem:
+                     timer=None, ae: bool = False,
+                     ae_omega: float = 0.4) -> SCFSystem:
     """One-time setup on ``device`` (default: the GPU).
 
     ``aoR`` (optional) skips the collocation. The hcore build always uses
     float64 AO values; the system's ``aoR`` is cast to ``dtype``.
+    ``ae=True`` builds the all-electron system: S and hcore from the
+    analytic mesh-free engines (:func:`~pyscf_isdf_tpu_torch.df.aegdf.ae_hcore`,
+    range split ``ae_omega``) instead of the uniform-mesh quadrature; aoR
+    is still collocated for the XC quadrature and the FFT engines. An
+    isolated cell (dimension 0) takes the bare nuclear repulsion and no
+    probe-charge shift.
     ``timer`` (a :class:`~pyscf_isdf_tpu_torch.utils.timing.StageTimer`)
     records the stages 'ao_plan', 'aoR', 'S/T', 'pp' and 'coulomb'.
     """
@@ -77,20 +86,31 @@ def build_scf_system(cell: Cell, device=None, dtype=torch.float64, aoR=None,
     else:
         aoR64 = torch.as_tensor(aoR, **f64)
 
-    with timer("S/T"):
-        S, T = overlap_and_kinetic(cell, device=device)
-    with timer("pp"):
-        if cell.pseudos:
-            vpp = pp_ops.get_pp(cell, aoR64)
-        else:
-            vpp = pp_ops.get_nuc(cell, aoR64)
-    hcore = T + vpp
+    if ae:
+        from pyscf_isdf_tpu_torch.df.aegdf import ae_hcore
+
+        with timer("S/T"):
+            S, hcore = ae_hcore(cell, ae_omega, device=device)
+    else:
+        with timer("S/T"):
+            S, T = overlap_and_kinetic(cell, device=device)
+        with timer("pp"):
+            if cell.pseudos:
+                vpp = pp_ops.get_pp(cell, aoR64)
+            else:
+                vpp = pp_ops.get_nuc(cell, aoR64)
+        hcore = T + vpp
     X = orthogonalizer(S)
 
     with timer("coulomb"):
-        coulG = coulomb.get_coulG(cell)  # plain 4pi/G^2, G=0 -> 0
-        mad = coulomb.madelung(cell)
-        e_nuc = coulomb.ewald(cell)
+        coulG = coulomb.get_coulG(cell)  # G=0 -> 0 (3-D), truncated below
+        if cell.dimension != 0:
+            mad = coulomb.madelung(cell)
+            e_nuc = coulomb.ewald(cell)
+        else:
+            from pyscf_isdf_tpu_torch.df.aegdf import _e_nuc_molecular
+
+            mad, e_nuc = 0.0, _e_nuc_molecular(cell)
 
     return SCFSystem(
         cell=cell, S=S, hcore=hcore, X=X,
@@ -99,6 +119,7 @@ def build_scf_system(cell: Cell, device=None, dtype=torch.float64, aoR=None,
         madelung=mad, e_nuc=e_nuc, mesh=tuple(cell.mesh),
         weight=cell.grid_weight, nelec=cell.nelectron,
         Gv=torch.as_tensor(cell.get_Gv(), dtype=dtype, device=device),
+        ae=ae, ae_omega=ae_omega,
     )
 
 
@@ -194,6 +215,49 @@ def exchange_engines(system, df, coulGs, isdf_c, timer=None):
     return [lambda dm, f=f: isdf_mod.get_k(f, dm) for f in facs], facs
 
 
+def fitted_jk(system, df, hyb, alpha, omega, timer=None):
+    """The fit and the ``get_jk(dm, with_k, C_w=None)`` of the fitted
+    engines: 'gdf' (a second fit in the long-range metric for a
+    range-separated hybrid, combined as hyb K_full + (alpha - hyb) K_LR)
+    or 'aegdf' (a system built with ``ae=True``; no range separation)."""
+    from pyscf_isdf_tpu_torch.df import gdf as gdf_mod
+
+    timer = timer or null_timer
+    cell, aoR = system.cell, system.aoR
+    rsh = omega != 0.0
+    fits = []
+    if df == "aegdf":
+        from pyscf_isdf_tpu_torch.df.aegdf import build_ae_gdf
+
+        if not system.ae:
+            raise ValueError("df='aegdf' needs build_scf_system(ae=True) "
+                             "(analytic S/hcore)")
+        if rsh:
+            raise NotImplementedError("aegdf with range-separated exchange")
+        fits.append(build_ae_gdf(cell, omega=system.ae_omega, device=aoR.device))
+    else:
+        # one collocation of the auxiliary basis serves both metrics
+        aux = gdf_mod.collocate_aux(cell, gdf_mod.make_auxcell(cell), aoR.device, timer)
+        coulGs = [system.coulG]
+        if rsh:
+            coulGs.append(coulomb.get_coulG(cell, exxdiv=None, omega=omega))
+        for coulG in coulGs:
+            fits.append(gdf_mod.build_gdf(cell, aoR, coulG, system.mesh, system.weight,
+                                          aoR_aux=aux, timer=timer))
+        del aux
+
+    def get_jk(dm, with_k, C_w=None):
+        with timer("JK"):
+            vj, vk = gdf_mod.get_jk(fits[0], dm)
+            if not with_k:
+                return vj, None
+            if rsh:
+                vk = hyb * vk + (alpha - hyb) * gdf_mod.get_jk(fits[1], dm)[1]
+            return vj, vk
+
+    return fits[0], get_jk
+
+
 def make_rdm1(mo_coeff: torch.Tensor, nocc: int) -> torch.Tensor:
     c = mo_coeff[:, :nocc]
     return 2.0 * c @ c.T
@@ -233,38 +297,47 @@ def scf_kernel(
         get_jk: optional override ``(dm, with_k) -> (vj, vk)``.
         df: 'fftdf' (exact pair-density FFT exchange), 'isdf' (ISDF
             factorization built here, GEMM-cost exchange) or 'isdf-robust'
-            (robust-fit ISDF exchange through the cross-term kernel). J is
-            the exact FFT Poisson solve in every engine. A range-separated
-            hybrid builds the full-range and the long-range exchange of the
-            engine (the ISDF engines from one shared fit), combined as
-            hyb K_full + (alpha - hyb) K_LR, each with its own probe-charge
-            Madelung shift.
+            (robust-fit ISDF exchange through the cross-term kernel), with
+            J the exact FFT Poisson solve; 'gdf' (Gaussian density fitting
+            on the grid, :mod:`~pyscf_isdf_tpu_torch.df.gdf`) or 'aegdf'
+            (the analytic all-electron fit of a system built with
+            ``ae=True``, :mod:`~pyscf_isdf_tpu_torch.df.aegdf`), J and K
+            from the whitened fit tensor. A range-separated hybrid builds
+            the full-range and the long-range exchange of the engine (the
+            ISDF engines from one shared fit, 'gdf' from a second fit in
+            the long-range metric), combined as hyb K_full + (alpha - hyb)
+            K_LR, each with its own probe-charge Madelung shift; 'aegdf'
+            takes none.
         sigma: smearing width (Ha); ``sigma > 0`` gives finite-temperature
             occupations (:func:`~pyscf_isdf_tpu_torch.scf.occupations.smearing_occ_rhf`,
             ``smearing_method`` 'fermi' or Gaussian) and turns the
             occupied-MO exchange off.
         v_ext: optional (nao, nao) external one-body potential added to the
             Fock operator each cycle but not to the reported energy.
-        timer: optional StageTimer; records the ISDF build stages and, per
-            iteration, 'cycle' and within it 'J', 'K', 'XC' and 'eigh'.
+        xc_grids: 'uniform' (the FFT grid) or 'becke[:n_rad,n_theta]', the
+            Becke atomic-grid XC quadrature
+            (:func:`~pyscf_isdf_tpu_torch.ops.becke.becke_xc_inputs`); J and
+            K stay on their engine.
+        timer: optional StageTimer; records the ISDF, GDF and Becke build
+            stages and, per iteration, 'cycle' and within it 'J', 'K' (or
+            'JK' for the fitted engines), 'XC' and 'eigh'.
 
-    Becke grids, the other DF engines and ``isdf_precision='dd'`` are not
-    ported yet and raise ``NotImplementedError``.
+    ``isdf_precision='dd'`` is not ported (float64 replaces it) and raises
+    ``NotImplementedError``.
 
     Returns a dict with e_tot, mo_energy, mo_coeff, mo_occ (None unless
     smeared), dm, converged, niter (tensors on the system's device),
     entropy, mu and e_free = e_tot - sigma * entropy (0, None and e_tot
     without smearing), isdf, the factorization the ISDF engines built
-    (None otherwise), and isdf_lr, the long-range one of a range-separated
-    hybrid (None otherwise).
+    (None otherwise), isdf_lr, the long-range one of a range-separated
+    hybrid (None otherwise), gdf, the fit of 'gdf' or 'aegdf' (None
+    otherwise), and becke, the Becke grid (None on the uniform grid).
     """
-    if xc_grids != "uniform":
-        raise NotImplementedError(f"xc_grids={xc_grids!r}")
-    if df not in ("fftdf", "isdf", "isdf-robust"):
-        if df in ("gdf", "aegdf"):
-            raise NotImplementedError(f"df engine {df!r}")
-        raise ValueError(f"unknown df engine {df!r}: use 'fftdf', 'isdf' "
-                         "or 'isdf-robust'")
+    becke_mod.parse_xc_grids(xc_grids)
+    if get_jk is None and df not in ("fftdf", "isdf", "isdf-robust", "gdf",
+                                     "aegdf"):
+        raise ValueError(f"unknown df engine {df!r}: use 'fftdf', 'isdf', "
+                         "'isdf-robust', 'gdf' or 'aegdf'")
     if isdf_precision is not None:
         raise NotImplementedError(f"isdf precision {isdf_precision!r}: the "
                                   "port solves in the working dtype (float64)")
@@ -291,12 +364,18 @@ def scf_kernel(
     coulG = system.coulG
     nocc = system.nelec // 2
 
+    need_grad = is_dft and xcspec.family in ("gga", "mgga")
+    becke = becke_mod.becke_xc_inputs(cell, xc_grids, need_grad, device=device,
+                                      timer=timer) if is_dft else None
     ao_grad = None
-    if is_dft and xcspec.family in ("gga", "mgga"):
+    if need_grad and becke is None:
         ao_grad = ao_gradient_fft(aoR, mesh, system.Gv)
 
     internal_jk = get_jk is None
     facs = ()
+    fit = None
+    if get_jk is None and df in ("gdf", "aegdf"):
+        fit, get_jk = fitted_jk(system, df, hyb, alpha, omega, timer)
     if get_jk is None:
         coulG_k = coulG
         if need_k and exxdiv not in (None, "ewald"):
@@ -379,7 +458,12 @@ def scf_kernel(
             e_xc = 0.0
             if is_dft:
                 with timer("XC"):
-                    e_xc_t, vxc, _ = _vxc(aoR, ao_grad, dm.to(dtype), weight, xcspec)
+                    if becke is None:
+                        e_xc_t, vxc, _ = _vxc(aoR, ao_grad, dm.to(dtype), weight,
+                                              xcspec)
+                    else:
+                        b_ao, b_grad, b_w, _ = becke
+                        e_xc_t, vxc, _ = becke_mod.vxc(b_ao, b_grad, dm, b_w, xcspec)
                     e_xc = float(e_xc_t)
                 veff += vxc.to(torch.float64)
             e_k = 0.0
@@ -435,4 +519,6 @@ def scf_kernel(
         "e_free": e_tot - sigma * entropy if smeared else e_tot,
         "isdf": facs[0] if facs else None,
         "isdf_lr": facs[1] if len(facs) > 1 else None,
+        "gdf": fit,
+        "becke": None if becke is None else becke[3],
     }

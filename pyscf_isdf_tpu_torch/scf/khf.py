@@ -19,7 +19,7 @@ from pyscf_isdf_tpu_torch import symm
 from pyscf_isdf_tpu_torch.cell import Cell
 from pyscf_isdf_tpu_torch.device import require_device, resolve_device
 from pyscf_isdf_tpu_torch.df import fftdf_k
-from pyscf_isdf_tpu_torch.ops import coulomb, pp as pp_ops
+from pyscf_isdf_tpu_torch.ops import becke as becke_mod, coulomb, pp as pp_ops
 from pyscf_isdf_tpu_torch.ops.ao_eval import ao_gradient_fft_k, eval_ao_kpts
 from pyscf_isdf_tpu_torch.ops.ft_ao import overlap_and_kinetic
 from pyscf_isdf_tpu_torch.ops.xc import XCSpec
@@ -50,6 +50,8 @@ class KSCFSystem:
     mesh: tuple
     weight: float
     nelec_tot: int             # electrons in the full k-sampled supercell
+    ae: bool = False           # analytic all-electron S/hcore (df/aegdf.py)
+    ae_omega: float = 0.4      # SR/LR split of the analytic build
 
 
 def orthogonalizers(S: torch.Tensor) -> tuple:
@@ -62,36 +64,42 @@ def orthogonalizers(S: torch.Tensor) -> tuple:
 
 
 def build_kscf_system(cell: Cell, kpts, device=None, ae: bool = False,
-                      timer=None) -> KSCFSystem:
+                      ae_omega: float = 0.4, timer=None) -> KSCFSystem:
     """One-time k-point setup on ``device`` (default: the GPU), float64.
 
-    ``ae=True`` (analytic all-electron S/hcore) is not ported yet and
-    raises ``NotImplementedError``. ``timer`` (a
+    ``ae=True`` builds the all-electron system: per-k S and hcore from the
+    analytic mesh-free engines
+    (:func:`~pyscf_isdf_tpu_torch.df.aegdf.ae_hcore_kpts`, range split
+    ``ae_omega``); the Bloch AOs are still collocated for the XC quadrature
+    and the FFT engines. ``timer`` (a
     :class:`~pyscf_isdf_tpu_torch.utils.timing.StageTimer`) records the
     stages 'aoR_k', 'S/T', 'pp' and 'coulomb'.
     """
-    if ae:
-        raise NotImplementedError("ae=True (analytic all-electron k-point "
-                                  "S/hcore)")
     device = resolve_device(device)
     timer = timer or null_timer
     kpts = np.reshape(np.asarray(kpts, dtype=np.float64), (-1, 3))
     nk = len(kpts)
     with timer("aoR_k"):
         aoR_k = eval_ao_kpts(cell, kpts, device=device)
-    S_k, h_k = [], []
-    for ik, k in enumerate(kpts):
+    if ae:
+        from pyscf_isdf_tpu_torch.df.aegdf import ae_hcore_kpts
+
         with timer("S/T"):
-            S, T = overlap_and_kinetic(cell, kpt=k, device=device)
-        with timer("pp"):
-            if cell.pseudos:
-                vloc, _ = pp_ops.get_vpploc(cell, aoR_k[ik])
-                vpp = vloc + pp_ops.get_vppnl(cell, kpt=k, device=device)
-            else:
-                vpp = pp_ops.get_nuc(cell, aoR_k[ik])
-        S_k.append(S.to(torch.complex128))
-        h_k.append(T.to(torch.complex128) + vpp)
-    S = torch.stack(S_k)
+            S, hcore = ae_hcore_kpts(cell, kpts, ae_omega, device=device)
+    else:
+        S_k, h_k = [], []
+        for ik, k in enumerate(kpts):
+            with timer("S/T"):
+                S, T = overlap_and_kinetic(cell, kpt=k, device=device)
+            with timer("pp"):
+                if cell.pseudos:
+                    vloc, _ = pp_ops.get_vpploc(cell, aoR_k[ik])
+                    vpp = vloc + pp_ops.get_vppnl(cell, kpt=k, device=device)
+                else:
+                    vpp = pp_ops.get_nuc(cell, aoR_k[ik])
+            S_k.append(S.to(torch.complex128))
+            h_k.append(T.to(torch.complex128) + vpp)
+        S, hcore = torch.stack(S_k), torch.stack(h_k)
     with timer("coulomb"):
         coulG = coulomb.get_coulG(cell)
         coulG_pairs, expmikr = fftdf_k.make_k_kernels(cell, kpts)
@@ -99,13 +107,14 @@ def build_kscf_system(cell: Cell, kpts, device=None, ae: bool = False,
         e_nuc = coulomb.ewald(cell)
     f64 = dict(dtype=torch.float64, device=device)
     return KSCFSystem(
-        cell=cell, kpts=kpts, S=S, hcore=torch.stack(h_k),
+        cell=cell, kpts=kpts, S=S, hcore=hcore,
         X=orthogonalizers(S), aoR_k=aoR_k,
         coulG=torch.as_tensor(coulG, **f64),
         coulG_pairs=torch.as_tensor(coulG_pairs, **f64),
         expmikr=torch.as_tensor(expmikr, dtype=torch.complex128, device=device),
         madelung=mad, e_nuc=e_nuc, mesh=tuple(cell.mesh),
         weight=cell.grid_weight, nelec_tot=cell.nelectron * nk,
+        ae=ae, ae_omega=ae_omega,
     )
 
 
@@ -114,18 +123,26 @@ def _vxc_k(aoR_k, ao_grad_k, dm, weight, xcspec):
     nao) complex).
 
     The density is the k-average rho = (1/nk) sum_k Re tr(D_k ao ao^*),
-    clamped at 1e-30; GGA and meta-GGA rungs add the spectral AO gradients
+    clamped at 1e-30; GGA and meta-GGA rungs add the AO gradients
     ``ao_grad_k`` (nk, 3, ng, nao), meta-GGAs the kinetic-energy density
     tau = (1/2nk) sum_k Re tr(D_k grad ao^* . grad ao) and its potential
-    term 1/2 w grad ao^H (vtau grad ao).
+    term 1/2 w grad ao^H (vtau grad ao). ``weight`` is the uniform grid's
+    scalar or a per-point (ng,) tensor (Becke grids).
     """
     nk = aoR_k.shape[0]
+    per_point = torch.is_tensor(weight)
+
+    def wsum(x):
+        return torch.sum(weight * x) if per_point else weight * torch.sum(x)
+
     t = aoR_k @ dm                                           # (nk, ng, nao)
     rho = torch.clamp((t * aoR_k.conj()).sum((0, 2)).real / nk, min=1e-30)
+    ao_h = aoR_k.conj().transpose(1, 2)
     if xcspec.family not in ("gga", "mgga"):
         exc, vrho, _ = xcspec.exc_vxc(rho)
-        vxc = weight * ((aoR_k.conj().transpose(1, 2) * vrho) @ aoR_k)
-        return weight * torch.sum(rho * exc), vxc
+        if per_point:
+            return wsum(rho * exc), (ao_h * (weight * vrho)) @ aoR_k
+        return wsum(rho * exc), weight * ((ao_h * vrho) @ aoR_k)
     # grad rho = (2/nk) Re sum_k conj(t) . grad(ao)
     grho = 2.0 / nk * torch.einsum("kgj,kxgj->xg", t.conj(), ao_grad_k).real
     sigma = torch.clamp((grho * grho).sum(0), min=1e-30)
@@ -140,14 +157,18 @@ def _vxc_k(aoR_k, ao_grad_k, dm, weight, xcspec):
     # V_k = w [conj(ao)^T (vrho/2 ao + 2 vsigma grad_rho.grad_ao) + h.c.]
     aow = 0.5 * vrho[:, None] * aoR_k + 2.0 * torch.einsum(
         "xg,kxgi->kgi", (grho * vsigma).to(aoR_k.dtype), ao_grad_k)
-    half = weight * (aoR_k.conj().transpose(1, 2) @ aow)
+    half = ao_h @ (weight[:, None] * aow) if per_point else weight * (ao_h @ aow)
     vxc = half + half.conj().transpose(1, 2)
     if vtau is not None:
         nk, _, ng, nao = ao_grad_k.shape
         g = ao_grad_k.reshape(nk, 3 * ng, nao)
-        gw = (ao_grad_k * vtau[:, None]).reshape(nk, 3 * ng, nao)
-        vxc = vxc + 0.5 * weight * (gw.conj().transpose(1, 2) @ g)
-    return weight * torch.sum(rho * exc), vxc
+        if per_point:
+            gw = (ao_grad_k * (weight * vtau)[:, None]).reshape(nk, 3 * ng, nao)
+            vxc = vxc + 0.5 * (gw.conj().transpose(1, 2) @ g)
+        else:
+            gw = (ao_grad_k * vtau[:, None]).reshape(nk, 3 * ng, nao)
+            vxc = vxc + 0.5 * weight * (gw.conj().transpose(1, 2) @ g)
+    return wsum(rho * exc), vxc
 
 
 def vxc_kpts(aoR_k, ao_grad_k, dm, weight, xcspec):
@@ -168,7 +189,8 @@ def bloch_ao_gradients(system: KSCFSystem) -> torch.Tensor:
                         for k in range(len(system.kpts))])
 
 
-def exchange_engines_k(system: KSCFSystem, df, isdf_c, omega=None, k1_idx=None):
+def exchange_engines_k(system: KSCFSystem, df, isdf_c, omega=None, k1_idx=None,
+                       exxdiv=None):
     """Exchange functions ``dm_k -> K_k`` of one k-point engine: the
     full-range one and, with ``omega``, the long-range one.
 
@@ -176,35 +198,80 @@ def exchange_engines_k(system: KSCFSystem, df, isdf_c, omega=None, k1_idx=None):
     its own IP selection), 'isdf_q' the q-resolved one with robust-fit
     exchange, 'fftdf' uses the exact pair-density FFT build on the
     system's kernels (and, with ``omega``, on the long-range ones).
-    ``k1_idx`` (the IBZ driver's band k-points, 'isdf' and 'fftdf')
-    returns K at those k-points alone.
+    ``exxdiv`` 'vcut_sph' or 'vcut_ws' truncates the full-range kernels
+    ('ewald' and None leave them plain: the loop adds the probe-charge
+    shift). ``k1_idx`` (the IBZ driver's band k-points, 'isdf' and
+    'fftdf') returns K at those k-points alone.
     """
     cell, aoR_k, kpts = system.cell, system.aoR_k, system.kpts
+    ex = exxdiv if exxdiv not in (None, "ewald") else None
     omegas = [None] if omega is None else [None, omega]
     if df == "isdf_q":
         from pyscf_isdf_tpu_torch.df import isdf_q as isdf_q_mod
 
         facs = [isdf_q_mod.build_isdf_q(cell, aoR_k, kpts, c=isdf_c, keep_x=True,
-                                        omega=w or 0.0) for w in omegas]
+                                        exxdiv=None if w else ex, omega=w or 0.0)
+                for w in omegas]
         return [lambda dm, f=f: isdf_q_mod.get_k_kpts_robust(f, dm, aoR_k,
                                                              system.weight)
                 for f in facs]
     if df == "isdf":
         from pyscf_isdf_tpu_torch.df import isdf_k as isdf_k_mod
 
-        facs = [isdf_k_mod.build_isdf_k(cell, aoR_k, kpts, c=isdf_c, omega=w or 0.0)
+        facs = [isdf_k_mod.build_isdf_k(cell, aoR_k, kpts, c=isdf_c,
+                                        exxdiv=None if w else ex, omega=w or 0.0)
                 for w in omegas]
         return [lambda dm, f=f: isdf_k_mod.get_k_kpts(f, dm, k1_idx=k1_idx)
                 for f in facs]
-    kernels = [system.coulG_pairs]
+    kw = dict(dtype=torch.float64, device=aoR_k.device)
+    kernels = [system.coulG_pairs if ex is None else torch.as_tensor(
+        fftdf_k.make_k_kernels(cell, kpts, exxdiv=ex)[0], **kw)]
     if omega is not None:
         kernels.append(torch.as_tensor(
-            fftdf_k.make_k_kernels(cell, kpts, omega=omega)[0],
-            dtype=torch.float64, device=aoR_k.device))
+            fftdf_k.make_k_kernels(cell, kpts, omega=omega)[0], **kw))
     kweight = system.weight / len(kpts)
     return [lambda dm, cp=cp: fftdf_k.get_k_kpts(aoR_k, dm, cp, system.expmikr,
                                                  system.mesh, kweight, k1_idx=k1_idx)
             for cp in kernels]
+
+
+def fitted_jk_k(system: KSCFSystem, df, hyb, alpha, omega, timer=None):
+    """``get_jk(dm_k, with_k, C_w_k=None)`` of the fitted k-point engines:
+    'gdf' (a second fit in the long-range metric for a range-separated
+    hybrid) or 'aegdf' (a system built with ``ae=True``; no range
+    separation)."""
+    from pyscf_isdf_tpu_torch.df import gdf as gdf_mod
+
+    timer = timer or null_timer
+    cell, kpts, aoR_k = system.cell, system.kpts, system.aoR_k
+    rsh = omega != 0.0
+    if df == "aegdf":
+        from pyscf_isdf_tpu_torch.df.aegdf import build_ae_gdf_kpts
+
+        if not system.ae:
+            raise ValueError("df='aegdf' needs build_kscf_system(ae=True) "
+                             "(analytic S/hcore)")
+        if rsh:
+            raise NotImplementedError("aegdf with range-separated exchange")
+        fits = [build_ae_gdf_kpts(cell, kpts, omega=system.ae_omega,
+                                  device=aoR_k.device)]
+    else:
+        fits = [gdf_mod.build_gdf_kpts(cell, aoR_k, kpts, system.mesh,
+                                       system.weight, timer=timer)]
+        if rsh:
+            fits.append(gdf_mod.build_gdf_kpts(cell, aoR_k, kpts, system.mesh,
+                                               system.weight, omega=omega))
+
+    def get_jk(dm, with_k, C_w_k=None):
+        with timer("JK"):
+            vj, vk = gdf_mod.get_jk_kpts(fits[0], dm)
+            if not with_k:
+                return vj, None
+            if rsh:
+                vk = hyb * vk + (alpha - hyb) * gdf_mod.get_jk_kpts(fits[1], dm)[1]
+            return vj, vk
+
+    return get_jk
 
 
 def _eig_all(F, X):
@@ -274,6 +341,7 @@ def kscf_kernel(
     device=None,
     timer=None,
     ibz: Optional[symm.IBZInfo] = None,
+    get_jk=None,
 ):
     """Run the k-point SCF to convergence on ``device`` (default: the GPU),
     where ``system`` must have been built. xc=None -> KRHF, else KRKS ('hf'
@@ -303,14 +371,26 @@ def kscf_kernel(
     loop runs over the irreducible k-points alone ('fftdf' and 'isdf';
     see :func:`~pyscf_isdf_tpu_torch.scf.khf_ksymm.kscf_ibz_kernel`).
 
+    ``df='gdf'`` fits J and K in the Coulomb metric of the grid
+    (:func:`~pyscf_isdf_tpu_torch.df.gdf.build_gdf_kpts`; a second fit in
+    the long-range metric for a range-separated hybrid), ``df='aegdf'``
+    takes them from the analytic all-electron fit of a system built with
+    ``ae=True`` (:func:`~pyscf_isdf_tpu_torch.df.aegdf.build_ae_gdf_kpts`).
+    ``get_jk`` (optional) overrides the engine: ``(dm_k, with_k) ->
+    (vj_k, vk_k)``. ``exxdiv`` 'vcut_sph' or 'vcut_ws' truncates the
+    exchange kernels of 'fftdf', 'isdf' and 'isdf_q'. ``xc_grids``
+    'becke[:n_rad,n_theta]' takes the XC quadrature on the Becke atomic
+    grid (:func:`~pyscf_isdf_tpu_torch.ops.becke.becke_xc_inputs`, Bloch AOs
+    per k-point).
+
     ``hubbard`` turns on DFT+U (reference pyscf/pbc/dft/krkspu.py): a list
     of (atom index or element symbol, l, U in Hartree) subspaces, whose
     E_U joins the energy and V_U the Fock matrix
     (:class:`~pyscf_isdf_tpu_torch.scf.dftu.HubbardU`); it does not combine
     with ``ibz`` (``ValueError``).
 
-    Becke grids, the gdf/aegdf engines and ``isdf_precision='dd'`` are not
-    ported yet and raise ``NotImplementedError``.
+    ``isdf_precision='dd'`` is not ported (float64 replaces it) and raises
+    ``NotImplementedError``.
 
     Returns a dict with e_tot, mo_energy, mo_coeff (per-k tensor lists),
     mo_occ (per-k numpy arrays), dm (nk, nao, nao), converged, niter,
@@ -321,17 +401,14 @@ def kscf_kernel(
     if isdf_precision is not None:
         raise NotImplementedError(f"isdf_precision={isdf_precision!r}: the "
                                   "port solves in float64")
-    if xc_grids != "uniform":
-        raise NotImplementedError(f"xc_grids={xc_grids!r}")
-    if df not in ("fftdf", "isdf", "isdf_q"):
-        if df in ("gdf", "aegdf"):
-            raise NotImplementedError(f"df engine {df!r}")
-        raise ValueError(f"unknown df engine {df!r}: use 'fftdf', 'isdf' "
-                         "or 'isdf_q'")
+    becke_mod.parse_xc_grids(xc_grids)
+    if get_jk is None and df not in ("fftdf", "isdf", "isdf_q", "gdf", "aegdf"):
+        raise ValueError(f"unknown df engine {df!r}: use 'fftdf', 'isdf', "
+                         "'isdf_q', 'gdf' or 'aegdf'")
     if hubbard and ibz is not None:
         raise ValueError("hubbard with ibz: the IBZ SCF takes no DFT+U")
-    if ibz is not None and df == "isdf_q":
-        raise ValueError("df='isdf_q' has no band subset for the IBZ: use "
+    if ibz is not None and (df not in ("fftdf", "isdf") or get_jk is not None):
+        raise ValueError(f"df={df!r}: the IBZ SCF needs the band subset of "
                          "'fftdf' or 'isdf'")
     device = require_device(system.aoR_k, device)
     timer = timer or null_timer
@@ -353,12 +430,15 @@ def kscf_kernel(
     weight = system.weight
     nocc_tot = system.nelec_tot // 2
 
-    ao_grad_k = None
-    if is_dft and xcspec.family in ("gga", "mgga"):
-        ao_grad_k = bloch_ao_gradients(system)
-
-    if exxdiv not in (None, "ewald"):
-        raise NotImplementedError(f"exxdiv={exxdiv!r} with k-points")
+    need_grad = is_dft and xcspec.family in ("gga", "mgga")
+    becke = becke_mod.becke_xc_inputs(cell, xc_grids, need_grad, kpts=system.kpts,
+                                      device=device, timer=timer) \
+        if is_dft else None
+    if becke is None:
+        xc_ao, xc_w = aoR_k, weight
+        xc_grad = bloch_ao_gradients(system) if need_grad else None
+    else:
+        xc_ao, xc_grad, xc_w, _ = becke
     # the IBZ reduction as data: the band rows the state lives on, their
     # weights and the expansion to the full zone (identity without ibz)
     if ibz is None:
@@ -388,30 +468,35 @@ def kscf_kernel(
             return _trace(a, b) / nk
         return float(torch.einsum("k,kij,kji->", w_band.to(a.dtype), a, b).real) / nk
 
-    get_k_fn = None
-    if need_k:
-        fns = exchange_engines_k(system, df, isdf_c, omega if rsh else None,
-                                 k1_idx=band_idx)
-        if rsh:
-            def get_k_fn(dm):
-                return hyb * fns[0](dm) + (alpha - hyb) * fns[1](dm)
-        else:
-            get_k_fn = fns[0]
-    occ_k_capable = df == "fftdf" and not rsh and ibz is None
+    internal_jk = get_jk is None
+    if get_jk is None and df in ("gdf", "aegdf"):
+        get_jk = fitted_jk_k(system, df, hyb, alpha, omega, timer)
+    if get_jk is None:
+        get_k_fn = None
+        if need_k:
+            fns = exchange_engines_k(system, df, isdf_c, omega if rsh else None,
+                                     k1_idx=band_idx, exxdiv=exxdiv)
+            if rsh:
+                def get_k_fn(dm):
+                    return hyb * fns[0](dm) + (alpha - hyb) * fns[1](dm)
+            else:
+                get_k_fn = fns[0]
+        occ_k_capable = (df == "fftdf" and not rsh and ibz is None
+                         and exxdiv in (None, "ewald"))
 
-    def get_jk(dm, with_k, C_w_k=None):
-        vj = at_bands(fftdf_k.get_j_kpts(aoR_k, dm, system.coulG, mesh, weight))
-        if not with_k:
-            return vj, None
-        if C_w_k is not None and occ_k_capable:
-            # occupied-MO fast exchange (reference tagged-DM path,
-            # fft_jk.py:235-259): nao*nocc FFTs per (k1,k2) block
-            vk = fftdf_k.get_k_kpts_occ(aoR_k, aoR_k @ C_w_k,
-                                        system.coulG_pairs, system.expmikr,
-                                        mesh, weight / nk)
-        else:
-            vk = get_k_fn(dm)
-        return vj, vk
+        def get_jk(dm, with_k, C_w_k=None):
+            vj = at_bands(fftdf_k.get_j_kpts(aoR_k, dm, system.coulG, mesh, weight))
+            if not with_k:
+                return vj, None
+            if C_w_k is not None and occ_k_capable:
+                # occupied-MO fast exchange (reference tagged-DM path,
+                # fft_jk.py:235-259): nao*nocc FFTs per (k1,k2) block
+                vk = fftdf_k.get_k_kpts_occ(aoR_k, aoR_k @ C_w_k,
+                                            system.coulG_pairs, system.expmikr,
+                                            mesh, weight / nk)
+            else:
+                vk = get_k_fn(dm)
+            return vj, vk
 
     S, hcore = at_bands(system.S), at_bands(system.hcore)
     X = system.X if ibz is None else tuple(system.X[k] for k in band_idx)
@@ -452,11 +537,17 @@ def kscf_kernel(
     for it in range(max_cycle):
         with timer("cycle"):
             dm_full = expand(dm)
-            vj, vk = get_jk(dm_full, need_k, C_w_k)
+            if internal_jk:
+                vj, vk = get_jk(dm_full, need_k, C_w_k)
+            else:
+                vj, vk = get_jk(dm_full, need_k)
+            vj = torch.as_tensor(vj, device=device).to(torch.complex128)
+            if need_k:
+                vk = torch.as_tensor(vk, device=device).to(torch.complex128)
             veff = vj.clone()
             e_xc = 0.0
             if is_dft:
-                e_xc, vxc = vxc_kpts(aoR_k, ao_grad_k, dm_full, weight, xcspec)
+                e_xc, vxc = vxc_kpts(xc_ao, xc_grad, dm_full, xc_w, xcspec)
                 veff = veff + at_bands(vxc)
             e_k = 0.0
             if need_k:

@@ -69,8 +69,9 @@ def kscf_ibz_kernel(
     carries ``entropy``, ``mu`` and ``e_free`` in the same conventions
     as the full-BZ driver. ``timer`` records each iteration as 'cycle'.
 
-    ``isdf_precision='dd'`` and Becke ``xc_grids`` are not ported and raise
-    ``NotImplementedError``.
+    ``isdf_precision='dd'`` is not ported and raises
+    ``NotImplementedError``; a Becke ``xc_grids`` integrates the expanded
+    full-zone density on the Becke cloud.
 
     Returns a dict with e_tot, mo_energy, mo_coeff (per-IBZ-k tensor
     lists), mo_occ (per-IBZ-k numpy arrays), dm (nk_ibz, nao, nao),

@@ -17,7 +17,7 @@ import torch
 
 from pyscf_isdf_tpu_torch.device import require_device
 from pyscf_isdf_tpu_torch.df import fftdf_k
-from pyscf_isdf_tpu_torch.ops import coulomb
+from pyscf_isdf_tpu_torch.ops import becke as becke_mod, coulomb
 from pyscf_isdf_tpu_torch.ops.xc import XCSpec
 from pyscf_isdf_tpu_torch.scf.diis import DIIS
 from pyscf_isdf_tpu_torch.scf.hf import rsh_coeffs
@@ -44,7 +44,8 @@ def vxc_spin_kpts(aoR_k, ao_grad_k, dm_a, dm_b, weight, xcspec):
     the symmetrised 1/2 vrho ao + (2 vs_ss grad rho_s + vs_ab grad rho_t)
     . grad ao form. Returns (e_xc as a float, vxc_a, vxc_b), each vxc
     (nk, nao, nao) complex. Takes an LDA or GGA functional, as the
-    reference's does.
+    reference's does. ``weight`` is the uniform grid's scalar or a
+    per-point (ng,) tensor (Becke grids).
     """
     nk = aoR_k.shape[0]
     ta = aoR_k @ dm_a
@@ -52,9 +53,18 @@ def vxc_spin_kpts(aoR_k, ao_grad_k, dm_a, dm_b, weight, xcspec):
     rho_a = torch.clamp((ta * aoR_k.conj()).sum((0, 2)).real / nk, min=0.0)
     rho_b = torch.clamp((tb * aoR_k.conj()).sum((0, 2)).real / nk, min=0.0)
     ao_h = aoR_k.conj().transpose(1, 2)
+
+    per_point = torch.is_tensor(weight)
+
+    def wsum(x):
+        return float((weight * x).sum() if per_point else weight * x.sum())
+
     if xcspec.family != "gga":
         exc, (va, vb), _ = xcspec.exc_vxc_spin(rho_a, rho_b)
-        return (float(weight * ((rho_a + rho_b) * exc).sum()),
+        if per_point:
+            return (wsum((rho_a + rho_b) * exc), (ao_h * (weight * va)) @ aoR_k,
+                    (ao_h * (weight * vb)) @ aoR_k)
+        return (wsum((rho_a + rho_b) * exc),
                 weight * ((ao_h * va) @ aoR_k), weight * ((ao_h * vb) @ aoR_k))
     if ao_grad_k is None:
         raise ValueError("vxc_spin_kpts: a GGA needs ao_grad_k")
@@ -67,10 +77,10 @@ def vxc_spin_kpts(aoR_k, ao_grad_k, dm_a, dm_b, weight, xcspec):
         aow = 0.5 * vrho[:, None] * aoR_k + torch.einsum(
             "xg,kxgi->kgi", (2.0 * vs_ss * g_s + vsab * g_t).to(aoR_k.dtype),
             ao_grad_k)
-        half = weight * (ao_h @ aow)
+        half = ao_h @ (weight[:, None] * aow) if per_point else weight * (ao_h @ aow)
         return half + half.conj().transpose(1, 2)
 
-    return (float(weight * ((rho_a + rho_b) * exc).sum()),
+    return (wsum((rho_a + rho_b) * exc),
             vmat_k(va, vsaa, ga, gb), vmat_k(vb, vsbb, gb, ga))
 
 
@@ -88,6 +98,7 @@ def kuhf_kernel(
     verbose: bool = False,
     xc_grids: str = "uniform",
     device=None,
+    timer=None,
 ):
     """Run the k-point spin-polarised SCF on ``device`` (default: the GPU),
     where ``system`` must have been built. xc=None (or 'hf') -> KUHF, else
@@ -100,10 +111,13 @@ def kuhf_kernel(
         df: 'fftdf' (exact pair-density FFT exchange) or 'isdf' (the
             shared-xi k-point ISDF factorization, one per kernel); a
             range-separated hybrid builds the full-range and long-range
-            exchange of the engine.
+            exchange of the engine. ``exxdiv`` 'vcut_sph' or 'vcut_ws'
+            truncates the full-range exchange kernels of either engine.
+        xc_grids: 'uniform' or 'becke[:n_rad,n_theta]' (the Becke
+            atomic-grid XC quadrature, Bloch AOs per k-point).
+        timer: optional StageTimer; records the Becke build stages.
 
-    Becke grids and ``isdf_precision='dd'`` are not ported and raise
-    ``NotImplementedError``.
+    ``isdf_precision='dd'`` is not ported and raises ``NotImplementedError``.
 
     Returns a dict with e_tot (per cell), mo_energy and mo_coeff ((alpha,
     beta) per-k tensor lists), mo_occ ((alpha, beta) (nk, nmo) numpy),
@@ -112,12 +126,9 @@ def kuhf_kernel(
     if isdf_precision is not None:
         raise NotImplementedError(f"isdf_precision={isdf_precision!r}: the "
                                   "port solves in float64")
-    if xc_grids != "uniform":
-        raise NotImplementedError(f"xc_grids={xc_grids!r}")
+    becke_mod.parse_xc_grids(xc_grids)
     if df not in ("fftdf", "isdf"):
         raise ValueError(f"unknown df engine {df!r}: use 'fftdf' or 'isdf'")
-    if exxdiv not in (None, "ewald"):
-        raise NotImplementedError(f"exxdiv={exxdiv!r} with k-points")
     device = require_device(system.aoR_k, device)
     cell = system.cell
     nk = len(system.kpts)
@@ -142,16 +153,23 @@ def kuhf_kernel(
     aoR_k, mesh, weight = system.aoR_k, system.mesh, system.weight
     get_k_spin = None
     if need_k:
-        fns = exchange_engines_k(system, df, isdf_c, omega if rsh else None)
+        fns = exchange_engines_k(system, df, isdf_c, omega if rsh else None,
+                                 exxdiv=exxdiv)
         if rsh:
             def get_k_spin(dm):
                 return hyb * fns[0](dm) + (alpha - hyb) * fns[1](dm)
         else:
             def get_k_spin(dm):
                 return hyb * fns[0](dm)
-    ao_grad_k = None
-    if is_dft and xcspec.family == "gga":
-        ao_grad_k = bloch_ao_gradients(system)
+    need_grad = is_dft and xcspec.family == "gga"
+    becke = becke_mod.becke_xc_inputs(cell, xc_grids, need_grad, kpts=system.kpts,
+                                      device=device, timer=timer) \
+        if is_dft else None
+    if becke is None:
+        xc_ao, xc_w = aoR_k, weight
+        xc_grad = bloch_ao_gradients(system) if need_grad else None
+    else:
+        xc_ao, xc_grad, xc_w, _ = becke
 
     S, hcore, X = system.S, system.hcore, system.X
 
@@ -178,8 +196,8 @@ def kuhf_kernel(
         veff = vj.expand(2, -1, -1, -1).clone()
         e_xc = 0.0
         if is_dft:
-            e_xc, vxc_a, vxc_b = vxc_spin_kpts(aoR_k, ao_grad_k, dm[0], dm[1],
-                                               weight, xcspec)
+            e_xc, vxc_a, vxc_b = vxc_spin_kpts(xc_ao, xc_grad, dm[0], dm[1],
+                                               xc_w, xcspec)
             veff += torch.stack([vxc_a, vxc_b])
         e_k = 0.0
         if need_k:

@@ -22,11 +22,11 @@ import torch
 from pyscf_isdf_tpu_torch.device import require_device
 from pyscf_isdf_tpu_torch.df import fftdf
 from pyscf_isdf_tpu_torch.ops import coulomb
-from pyscf_isdf_tpu_torch.ops.ao_eval import ao_gradient_fft
 from pyscf_isdf_tpu_torch.ops.xc import XCSpec
 from pyscf_isdf_tpu_torch.scf.diis import DIIS
 from pyscf_isdf_tpu_torch.scf.hf import SCFSystem, exchange_engines, rsh_coeffs
-from pyscf_isdf_tpu_torch.scf.uhf import _spin_vxc
+from pyscf_isdf_tpu_torch.ops import becke as becke_mod
+from pyscf_isdf_tpu_torch.scf.uhf import _spin_vxc, xc_quadrature
 from pyscf_isdf_tpu_torch.utils.timing import null_timer
 
 
@@ -72,17 +72,17 @@ def rohf_kernel(
             ISDF factorization built here, GEMM-cost exchange per spin); a
             range-separated hybrid builds the full-range and long-range
             exchange of the engine (ISDF: one shared fit).
-        timer: optional StageTimer; records the ISDF build stages and, per
-            iteration, 'cycle' and within it 'J', 'K', 'XC' and 'eigh'.
-
-    Becke grids are not ported and raise ``NotImplementedError``.
+        xc_grids: 'uniform' or 'becke[:n_rad,n_theta]' (the Becke
+            atomic-grid XC quadrature).
+        timer: optional StageTimer; records the ISDF and Becke build stages
+            and, per iteration, 'cycle' and within it 'J', 'K', 'XC' and
+            'eigh'.
 
     Returns a dict with e_tot, mo_energy, mo_coeff, dm (D_alpha, D_beta),
     fock (Fa, Fb) — the converged per-spin Fock matrices, not the Roothaan
     one —, nelec, converged and niter.
     """
-    if xc_grids != "uniform":
-        raise NotImplementedError(f"xc_grids={xc_grids!r}")
+    becke_mod.parse_xc_grids(xc_grids)
     if df not in ("fftdf", "isdf"):
         raise ValueError(f"unknown df engine {df!r}: use 'fftdf' or 'isdf'")
     device = require_device(system.aoR, device)
@@ -122,9 +122,7 @@ def rohf_kernel(
                 vk = vk + (alpha - hyb) * fns[1](dm)
             return vk
 
-    ao_grad = None
-    if is_dft and xcspec.family in ("gga", "mgga"):
-        ao_grad = ao_gradient_fft(aoR, mesh, system.Gv)
+    xc_ao, xc_grad, xc_w = xc_quadrature(system, xcspec, xc_grids, timer)
 
     S, hcore, X = system.S, system.hcore, system.X
 
@@ -147,8 +145,8 @@ def rohf_kernel(
             e_xc = 0.0
             if is_dft:
                 with timer("XC"):
-                    e_xc_t, vxc_a, vxc_b = _spin_vxc(aoR, ao_grad, dm[0].to(dtype),
-                                                     dm[1].to(dtype), weight, xcspec)
+                    e_xc_t, vxc_a, vxc_b = _spin_vxc(xc_ao, xc_grad, dm[0].to(dtype),
+                                                     dm[1].to(dtype), xc_w, xcspec)
                     e_xc = float(e_xc_t)
                 veff += torch.stack([vxc_a, vxc_b]).to(torch.float64)
             e_k = 0.0

@@ -18,7 +18,7 @@ from typing import Optional
 import torch
 
 from pyscf_isdf_tpu_torch.df import fftdf
-from pyscf_isdf_tpu_torch.ops import coulomb
+from pyscf_isdf_tpu_torch.ops import becke as becke_mod, coulomb
 from pyscf_isdf_tpu_torch.ops.ao_eval import ao_gradient_fft
 from pyscf_isdf_tpu_torch.ops.xc import XCSpec
 from pyscf_isdf_tpu_torch.scf.diis import DIIS
@@ -27,18 +27,30 @@ from pyscf_isdf_tpu_torch.utils.timing import null_timer
 
 
 def _spin_vxc(aoR, ao_grad, dm_a, dm_b, weight, xcspec):
-    """(Exc as a device scalar, Vxc_a, Vxc_b) on the uniform grid for an
-    LDA, GGA or meta-GGA. The GGA potential is the symmetrised
-    1/2 vrho ao + (2 vs_ss grad rho_s + vs_ab grad rho_t) . grad ao form,
-    plus 1/2 w grad ao^T (vtau_s grad ao) for a meta-GGA."""
+    """(Exc as a device scalar, Vxc_a, Vxc_b) for an LDA, GGA or meta-GGA.
+    The GGA potential is the symmetrised 1/2 vrho ao + (2 vs_ss grad rho_s
+    + vs_ab grad rho_t) . grad ao form, plus 1/2 w grad ao^T (vtau_s grad
+    ao) for a meta-GGA. ``weight`` is the uniform grid's scalar or a
+    per-point (ng,) tensor (Becke grids)."""
     ta = aoR @ dm_a
     tb = aoR @ dm_b
     rho_a = torch.clamp((ta * aoR).sum(-1), min=0.0)
     rho_b = torch.clamp((tb * aoR).sum(-1), min=0.0)
+    per_point = torch.is_tensor(weight)
+
+    def wsum(x):
+        return (weight * x).sum() if per_point else weight * x.sum()
+
+    def wmat(a, v, w=None):
+        """w sum_g a_g^T v_g a_g over the rows g of ``a`` (``w``: the
+        per-row weights when the rows are not the grid's points)."""
+        if not per_point:
+            return weight * ((a.T * v) @ a)
+        return (a.T * ((weight if w is None else w) * v)) @ a
+
     if xcspec.family == "lda":
         exc, (va, vb), _ = xcspec.exc_vxc_spin(rho_a, rho_b)
-        return (weight * ((rho_a + rho_b) * exc).sum(),
-                weight * ((aoR.T * va) @ aoR), weight * ((aoR.T * vb) @ aoR))
+        return wsum((rho_a + rho_b) * exc), wmat(aoR, va), wmat(aoR, vb)
     ga = 2.0 * torch.einsum("gi,xgi->xg", ta, ao_grad)
     gb = 2.0 * torch.einsum("gi,xgi->xg", tb, ao_grad)
     s_aa, s_ab, s_bb = (ga * ga).sum(0), (ga * gb).sum(0), (gb * gb).sum(0)
@@ -57,14 +69,30 @@ def _spin_vxc(aoR, ao_grad, dm_a, dm_b, weight, xcspec):
     def vmat(vrho, vs_ss, g_s, g_t, vt):
         aow = 0.5 * vrho[:, None] * aoR + torch.einsum(
             "xg,xgi->gi", 2.0 * vs_ss * g_s + vsab * g_t, ao_grad)
-        half = weight * (aoR.T @ aow)
+        half = aoR.T @ (weight[:, None] * aow) if per_point else weight * (aoR.T @ aow)
         out = half + half.T
         if vt is not None:
-            out = out + 0.5 * weight * ((ao_grad * vt[:, None]).reshape(-1, nao).T @ g2)
+            out = out + 0.5 * wmat(g2, vt.repeat(3), weight.repeat(3) if per_point else None)
         return out
 
-    return (weight * ((rho_a + rho_b) * exc).sum(),
+    return (wsum((rho_a + rho_b) * exc),
             vmat(va, vsaa, ga, gb, vtau[0]), vmat(vb, vsbb, gb, ga, vtau[1]))
+
+
+def xc_quadrature(system, xcspec, xc_grids, timer=None):
+    """(AO values, AO gradients or None, weight) of the XC quadrature of a
+    Gamma driver: the uniform grid (spectral gradients, scalar weight) or
+    the Becke cloud (per-point weights) of ``xc_grids``."""
+    is_dft = xcspec is not None and xcspec.family != "hf"
+    need_grad = is_dft and xcspec.family in ("gga", "mgga")
+    aoR = system.aoR
+    becke = becke_mod.becke_xc_inputs(system.cell, xc_grids, need_grad,
+                                      device=aoR.device, timer=timer) \
+        if is_dft else None
+    if becke is not None:
+        return becke[:3]
+    grad = ao_gradient_fft(aoR, system.mesh, system.Gv) if need_grad else None
+    return aoR, grad, system.weight
 
 
 def _spin_square(dm_a, dm_b, S, na, nb) -> float:
@@ -107,23 +135,24 @@ def uhf_kernel(
             factorization built here, GEMM-cost exchange); a
             range-separated hybrid builds the full-range and long-range
             exchange of the engine (ISDF: one shared fit). J is the exact
-            FFT Poisson solve.
-        timer: optional StageTimer; records the ISDF build stages and, per
-            iteration, 'cycle' and within it 'J', 'K' (internal engines),
-            'XC' and 'eigh'.
+            FFT Poisson solve. 'aegdf' (a system built with ``ae=True``)
+            takes J from the total density and K per spin from the
+            analytic all-electron fit tensor.
+        xc_grids: 'uniform' or 'becke[:n_rad,n_theta]' (the Becke
+            atomic-grid XC quadrature).
+        timer: optional StageTimer; records the ISDF and Becke build stages
+            and, per iteration, 'cycle' and within it 'J', 'K' (internal
+            engines), 'XC' and 'eigh'.
 
-    ``df='aegdf'``, Becke grids and ``isdf_precision='dd'`` are not ported
-    and raise ``NotImplementedError``.
+    ``isdf_precision='dd'`` is not ported and raises ``NotImplementedError``.
 
     Returns a dict with e_tot, mo_energy and mo_coeff ((alpha, beta)
     tensors), dm (D_alpha, D_beta), nelec, converged, niter and s_squared.
     """
-    if xc_grids != "uniform":
-        raise NotImplementedError(f"xc_grids={xc_grids!r}")
-    if df not in ("fftdf", "isdf"):
-        if df == "aegdf":
-            raise NotImplementedError(f"df engine {df!r}")
-        raise ValueError(f"unknown df engine {df!r}: use 'fftdf' or 'isdf'")
+    becke_mod.parse_xc_grids(xc_grids)
+    if df not in ("fftdf", "isdf", "aegdf"):
+        raise ValueError(f"unknown df engine {df!r}: use 'fftdf', 'isdf' "
+                         "or 'aegdf'")
     if isdf_precision is not None:
         raise NotImplementedError(f"isdf precision {isdf_precision!r}: the "
                                   "port solves in the working dtype (float64)")
@@ -148,6 +177,23 @@ def uhf_kernel(
     aoR = system.aoR
     dtype, device = aoR.dtype, aoR.device
     mesh, weight, coulG = system.mesh, system.weight, system.coulG
+
+    if get_jk is None and df == "aegdf":
+        from pyscf_isdf_tpu_torch.df.aegdf import build_ae_gdf
+        from pyscf_isdf_tpu_torch.df.gdf import get_jk_cd
+
+        if not system.ae:
+            raise ValueError("df='aegdf' needs build_scf_system(ae=True)")
+        if rsh:
+            raise NotImplementedError("aegdf with range-separated exchange")
+        cderi = build_ae_gdf(cell, omega=system.ae_omega, device=device).cderi
+
+        def get_jk(dm_spin, with_k):
+            vj = get_jk_cd(cderi, dm_spin[0] + dm_spin[1])[0]
+            if not with_k:
+                return vj, None
+            return vj, (get_jk_cd(cderi, dm_spin[0])[1],
+                        get_jk_cd(cderi, dm_spin[1])[1])
 
     if get_jk is None:
         get_k_fn = None
@@ -177,10 +223,7 @@ def uhf_kernel(
             with timer("K"):
                 return vj, (get_k_fn(dmj[0]), get_k_fn(dmj[1]))
 
-    ao_grad = None
-    if is_dft and xcspec.family in ("gga", "mgga"):
-        ao_grad = ao_gradient_fft(aoR, mesh, system.Gv)
-
+    xc_ao, xc_grad, xc_w = xc_quadrature(system, xcspec, xc_grids, timer)
     S, hcore, X = system.S, system.hcore, system.X
 
     def eig(F):
@@ -212,8 +255,8 @@ def uhf_kernel(
             e_xc = 0.0
             if is_dft:
                 with timer("XC"):
-                    e_xc_t, vxc_a, vxc_b = _spin_vxc(aoR, ao_grad, dm[0].to(dtype),
-                                                     dm[1].to(dtype), weight, xcspec)
+                    e_xc_t, vxc_a, vxc_b = _spin_vxc(xc_ao, xc_grad, dm[0].to(dtype),
+                                                     dm[1].to(dtype), xc_w, xcspec)
                     e_xc = float(e_xc_t)
                 veff += torch.stack([vxc_a, vxc_b]).to(torch.float64)
             e_k = 0.0

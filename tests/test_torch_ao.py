@@ -1,6 +1,10 @@
 """Port AO collocation (K1's plain path, its planners, the dense evaluator,
 spectral gradients) == JAX reference.
 
+The auxiliary basis of Gaussian density fitting reaches l = 4, past the
+Pallas kernel's l <= 3: its K1 cases hold the plain version to the
+reference's host evaluator alone.
+
 K1 runs on the CPU through its plain torch version (the CUDA kernel is
 held against the same plain version on the card by chip_smoke.py), on the
 brick plan of the uniform grid and on the reference's slab plan for
@@ -105,3 +109,29 @@ def test_dense_eval_ao_and_gradient():
     g_ref = np.asarray(ref_grad(jnp.asarray(ref), ref_cell.mesh,
                                 jnp.asarray(ref_cell.get_Gv())))
     assert np.abs(g.numpy() - g_ref).max() < 1e-10 * np.abs(g_ref).max()
+
+
+@functools.lru_cache(maxsize=None)
+def _aux_cells():
+    """The GDF auxiliary cells (l up to 4) of the diamond primitive cell."""
+    from pyscf_isdf_tpu.df.gdf import make_auxcell as ref_make_auxcell
+
+    from pyscf_isdf_tpu_torch.df.gdf import make_auxcell
+
+    ref_aux = ref_make_auxcell(ref_diamond(mesh=(9, 9, 9)))
+    aux = make_auxcell(diamond_primitive(mesh=(9, 9, 9)))
+    assert max(sh.l for sh in aux.shells) == 4
+    return ref_aux, aux, eval_ao_numpy(ref_aux)
+
+
+@pytest.mark.parametrize("plan", ["bricks", "slabs"])
+def test_collocation_l4(plan):
+    """K1's plain version at l = 4 (the GDF auxiliary basis), on the brick
+    plan and on the slab plan, with the auxiliary basis's image radius."""
+
+    ref_aux, aux, ref = _aux_cells()
+    coords = None if plan == "bricks" else aux.uniform_grid()
+    out = cuda_ao.make_ao_evaluator(aux, coords=coords, device="cpu",
+                                    rcut_precision=cuda_ao.TIGHT_RCUT_PRECISION)()
+    assert np.abs(out.numpy() - ref).max() < TOL
+

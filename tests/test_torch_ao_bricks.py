@@ -113,9 +113,10 @@ def test_primitive_cull_bound(basis, n):
     assert dropped_any
 
 
-def _needed_brute(cell):
+def _needed_brute(cell, grid=None):
     """Direct count over every (shell, point, image, primitive)."""
-    grid = cell.uniform_grid()
+    if grid is None:
+        grid = cell.uniform_grid()
     images = cell.lattice_images()
     n = 0
     for sh in cell.shells:
@@ -142,3 +143,20 @@ def test_needed_work_brute_force(basis):
     slabs, _, _ = cuda_ao.plan_ao_blocks(cell, block=64)
     assert cuda_ao.collocation_work(cell, slabs, cuda_ao.slab_slots(
         cell.ngrids, 64), device="cpu")["needed"] == need
+
+
+@pytest.mark.parametrize("basis", ["gth-szv", "gth-dzvp"])
+def test_needed_work_on_coords(basis):
+    """The count on explicit points (a cloud reaching past the cell, as an
+    atomic grid's does) against the direct one, under the culled slab plan."""
+    cell = diamond_primitive(mesh=(6, 6, 6), basis=basis)
+    rng = np.random.default_rng(7)
+    coords = rng.uniform(-2.0, 1.0, (300, 3)) @ cell.a
+    ev = cuda_ao.make_ao_evaluator(cell, coords=coords, block=64, device="cpu",
+                                   drop=cuda_ao.DROP)
+    work = cuda_ao.collocation_work(cell, ev.plans, ev.dest, device="cpu",
+                                    coords=coords)
+    need, done = work["needed"], work["evaluated"]
+    assert need["exp"] == _needed_brute(cell, coords)
+    assert need["exp"] <= done["exp"] and need["pairs"] <= done["pairs"]
+    assert 0 < need["fp64_instr"] <= done["fp64_instr"]

@@ -76,14 +76,18 @@ K_MODULES = ("kpts_helper", "k2gamma", "convert", "scf.khf", "scf.occupations",
              "scf.jit_diis", "scf.jit_driver", "ops.xc_mgga", "scf.uhf",
              "scf.kuhf", "symm", "scf.khf_ksymm", "df.fft_ao2mo", "mp.mp2", "mp.thc",
              "mp.kmp2", "scf.rohf", "scf.krohf", "scf.kghf", "scf.dftu", "scf.cdft",
-             "scf.bands", "scf.analysis", "mp.kmp2_stagger")
+             "scf.bands", "scf.analysis", "mp.kmp2_stagger", "ops.becke", "ops.pme",
+             "ops.md_int", "ops.md_int_k", "df.gdf", "df.aftdf", "df.aegdf",
+             "scf.x2c", "basis.nwchem")
 
 
 def test_port_imports_no_jax():
     """Importing every port module, the k-point ones, the graph drivers, the
-    meta-GGAs, the open-shell drivers, the IBZ SCF, MP2 and the remaining
-    mean-field drivers and bands named, leaves jax and the JAX package out of sys.modules
-    (a subprocess: this test process has imported jax)."""
+    meta-GGAs, the open-shell drivers, the IBZ SCF, MP2, the remaining
+    mean-field drivers and bands, and the Becke grids, PME, the
+    all-electron integrals, GDF, AFTDF, aegdf and X2C named, leaves jax and
+    the JAX package out of sys.modules (a subprocess: this test process has
+    imported jax)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import pyscf_isdf_tpu_torch as p\n"

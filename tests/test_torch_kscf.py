@@ -187,10 +187,14 @@ def test_ragged_orthogonalizers(systems):
 
 
 def test_unported_options_raise(systems):
+    """The double-float solves stay unported; aegdf needs a system built
+    with ae=True, and an unknown XC grid or engine is refused."""
     _, _, cell, port, kpts = systems
-    for kw in (dict(df="aegdf"), dict(isdf_precision="dd", df="isdf_q"),
-               dict(xc_grids="becke"), dict(exxdiv="vcut_sph"), dict(df="gdf")):
-        with pytest.raises(NotImplementedError):
-            kscf_kernel(port, device="cpu", **{"xc": "pbe0", **kw})
     with pytest.raises(NotImplementedError):
-        build_kscf_system(cell, kpts, device="cpu", ae=True)
+        kscf_kernel(port, device="cpu", xc="pbe0", isdf_precision="dd", df="isdf_q")
+    with pytest.raises(ValueError, match="ae=True"):
+        kscf_kernel(port, device="cpu", xc=None, df="aegdf")
+    with pytest.raises(ValueError, match="xc_grids"):
+        kscf_kernel(port, device="cpu", xc="pbe0", xc_grids="lebedev")
+    with pytest.raises(ValueError, match="unknown df"):
+        kscf_kernel(port, device="cpu", xc="pbe0", df="rsdf")

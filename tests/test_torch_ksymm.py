@@ -269,7 +269,7 @@ def test_kmp2_ksymm(systems, krhf):
 def test_unported_options_raise(systems):
     _, port, _ = systems
     for kw, err in ((dict(isdf_precision="dd", df="isdf"), NotImplementedError),
-                    (dict(xc_grids="becke"), NotImplementedError),
+                    (dict(xc_grids="lebedev"), ValueError),
                     (dict(df="isdf_q"), ValueError)):
         with pytest.raises(err):
             kscf_ibz_kernel(port, xc="pbe0", device="cpu", **kw)

@@ -303,8 +303,8 @@ def test_kghf_closed_shell_equals_krhf(kpoint):
 
 def test_options_raise(gamma, kpoint):
     ref_sys, sys_ = gamma
-    with pytest.raises(NotImplementedError):
-        rohf_kernel(sys_, xc="lda", xc_grids="becke", device="cpu")
+    with pytest.raises(ValueError, match="xc_grids"):
+        rohf_kernel(sys_, xc="lda", xc_grids="lebedev", device="cpu")
     _, ksys = kpoint
     with pytest.raises(NotImplementedError):
         krohf_kernel(ksys, df="isdf", isdf_precision="dd", device="cpu")

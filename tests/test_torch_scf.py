@@ -72,13 +72,16 @@ def test_scf_on_reference_system(systems, ref_scf_run):
 
 
 def test_unported_options_raise(systems):
+    """The double-float solves stay unported; the options the slices
+    ported refuse misuse as the reference does (aegdf on a system built
+    without ae=True, an unknown XC grid)."""
     _, port_sys = systems
     with pytest.raises(NotImplementedError):
-        scf_kernel(port_sys, xc="pbe0", df="gdf")
-    with pytest.raises(NotImplementedError):
-        scf_kernel(port_sys, xc="hse06", xc_grids="becke")
-    with pytest.raises(NotImplementedError):
         scf_kernel(port_sys, xc="pbe0", df="isdf", isdf_precision="dd")
+    with pytest.raises(ValueError, match="ae=True"):
+        scf_kernel(port_sys, xc=None, df="aegdf")
+    with pytest.raises(ValueError, match="xc_grids"):
+        scf_kernel(port_sys, xc="hse06", xc_grids="lebedev")
 
 
 @pytest.mark.parametrize("name", ["graphene", "diamond_cubic"])

@@ -197,15 +197,20 @@ def test_closed_shell_limits(gamma):
 
 
 def test_unported_options_raise(gamma, kpoint):
+    """The double-float solves stay unported; aegdf needs a system built
+    with ae=True and an unknown XC grid is refused, as in the reference."""
     _, sys_ = gamma
-    for kw in (dict(df="aegdf"), dict(xc_grids="becke"),
-               dict(df="isdf", isdf_precision="dd")):
-        with pytest.raises(NotImplementedError):
-            uhf_kernel(sys_, xc="pbe0", **kw)
+    with pytest.raises(NotImplementedError):
+        uhf_kernel(sys_, xc="pbe0", df="isdf", isdf_precision="dd")
+    with pytest.raises(ValueError, match="ae=True"):
+        uhf_kernel(sys_, xc="pbe0", df="aegdf")
+    with pytest.raises(ValueError, match="xc_grids"):
+        uhf_kernel(sys_, xc="pbe0", xc_grids="lebedev")
     _, ksys = kpoint
-    for kw in (dict(xc_grids="becke"), dict(df="isdf", isdf_precision="dd")):
-        with pytest.raises(NotImplementedError):
-            kuhf_kernel(ksys, xc="pbe0", device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        kuhf_kernel(ksys, xc="pbe0", device="cpu", df="isdf", isdf_precision="dd")
+    with pytest.raises(ValueError, match="xc_grids"):
+        kuhf_kernel(ksys, xc="pbe0", device="cpu", xc_grids="lebedev")
 
 
 def _same(out, ref):
