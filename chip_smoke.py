@@ -144,7 +144,36 @@ run from the root of a checkout. Phases, each of which fails the script:
      to 1e-7), a 0-D He box and a 1-D wire, RHF with 'vcut_ws', KRHF
      'gdf', Becke KRKS and UKS, aegdf RHF, UHF and KRHF 2x1x1 (and the
      latter against its supercell, 1e-6 Ha), the sfX2C-1e hcore RHF, and
-     AFTDF and KAFTDF J/K against FFTDF (1e-8 relative).
+     AFTDF and KAFTDF J/K against FFTDF (1e-8 relative);
+ 13. forces, stress and linear response: (a) on phase 5's cell with atom
+     0 moved +0.05 bohr along x, a PBE0 FFTDF SCF from phase 5's density
+     (conv_tol 1e-11), rhf_gradient(xc='pbe0', return_energy=True) with
+     its stage seconds (setup, energy forward, backward and in it the
+     AO-derivative pass) and peak memory, the traced energy against e_tot
+     (1e-8 Ha), the x force on atom 0 against a central difference of two
+     more SCFs at +-FD_STEP (FD_BAR; LDA if the three PBE0 SCFs would take
+     over 60 s), K1 launched by eval_ao_positions and within 1e-12 of its
+     plain version on the moved plan, timed beside its VJP; (b) an LDA
+     FFTDF SCF of phase 5's cell from its density, the dense TDA singlet
+     and triplet and TDDFT (nstates 5, n_ov 11664), tda_davidson against
+     the dense TDA (1e-8 Ha), TDDFT at or below TDA state by state, the
+     lowest triplet below the lowest singlet, the velocity-gauge
+     oscillator strengths, then tda_davidson(xc='pbe0', isdf=phase 5's
+     factorization) on phase 5's state (converged; iterations and ms a
+     product); (c) on phase 7's k-system, krhf_gradient (max|F| below
+     EGGBOX_BAR), kstress_tensor and ktda_davidson (LDA) on its KRKS, card
+     against CPU on the same state (1e-10; 1e-8 Ha), and the k-CIS of 10c's
+     KRHF on build_isdf_k(c=KCIS_C) (converged; ms a product; one seeded
+     make_ktda_matvec product on those factors card against CPU, 1e-12
+     relative); (d) card
+     against CPU on the reference tests' small cells (SCF energies 1e-10
+     Ha with equal iteration counts, then forces, stress and excitation
+     energies from the card's state 1e-10): uhf/rohf/kuhf_gradient,
+     stress/ustress/rostress_tensor, dense TDA and TDDFT for HF, LDA and
+     PBE singlet and triplet, ktddft_kernel on one k-ISDF factorization,
+     both gauges of oscillator strengths on a 0-D H2 box, two FIRE steps
+     of optimize and one step of optimize_cell (each device converges
+     their SCFs to the fixed 1e-10, so they agree to OPT_CPU_BAR).
 
 It prints the kernels' JSON summary and, as its last line,
 {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -1969,6 +1998,432 @@ def phase_small_slice9(torch, devs=("cuda", "cpu")):
     same("RHF aegdf on the sfX2C-1e hcore, He solid", x2c_scf)
 
 
+# ---------------------------------------------------------------- phase 13
+FD_STEP = 2e-4            # bohr: the central difference of tests/test_grad.py:124-131
+FD_BAR = 5e-6             # Ha/bohr: that test's distorted-diamond bar (:132)
+EGGBOX_BAR = 5e-4         # max|F| at a symmetric geometry (tests/test_grad.py:113)
+SLICE10_CPU_BAR = 1e-10   # forces, stress and energies, card against CPU
+TD_CPU_BAR = 1e-8         # excitation energies, card against CPU
+MV_CPU_BAR = 1e-12        # a response product on a seeded x, card against CPU (relative)
+KCIS_C = 6                # k-ISDF compression of 13c's k-CIS (n_ip 1296 at nk 27)
+OPT_CPU_BAR = 1e-5        # 13d's optimizers, card against CPU: their SCFs stop at the
+                          # reference's fixed 1e-10 (residual below its square root),
+                          # and a force is first order in that residual
+
+
+def on_dev(torch, v, dev):
+    """An SCF result's tensors (nested in tuples, lists and dicts) on ``dev``."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dev)
+    if isinstance(v, dict):
+        return {k: on_dev(torch, x, dev) for k, x in v.items()}
+    if isinstance(v, (tuple, list)):
+        return type(v)(on_dev(torch, x, dev) for x in v)
+    return v
+
+
+def plain_aoR(torch, ev, nao):
+    """aoR of a K1 plan from the kernel's plain version on every staged l."""
+    import numpy as np
+
+    from pyscf_isdf_tpu_torch.ops import cuda_ao
+
+    rows = torch.cat([cuda_ao.collocate_plain(*args) for args in ev.staged])
+    cols = np.concatenate([p.cols for p in ev.plans])
+    keep = cols >= 0
+    inv = np.zeros(nao, dtype=np.int64)
+    inv[cols[keep]] = np.nonzero(keep)[0]
+    return rows[torch.as_tensor(inv, device=rows.device)].T
+
+
+def phase_forces_main(torch, main, dev="cuda"):
+    """13a: PBE0 forces at the main width, atom 0 of phase 5's cell moved
+    by +0.05 bohr along x; the traced energy against the SCF's, the x force
+    on atom 0 against a central difference of two more SCFs, and K1 (the
+    forward of eval_ao_positions) against its plain version."""
+    import numpy as np
+
+    from pyscf_isdf_tpu_torch.grad import rhf_gradient
+    from pyscf_isdf_tpu_torch.ops.ao_eval import PackedBasis, eval_ao_positions
+    from pyscf_isdf_tpu_torch.ops.cuda_ao import collocate, make_ao_evaluator
+    from pyscf_isdf_tpu_torch.scf import build_scf_system, scf_kernel
+    from pyscf_isdf_tpu_torch.utils.timing import StageTimer
+
+    cell0 = main["system"].cell
+    dm0 = main["res"]["dm"]
+
+    def moved(dx):
+        coords = np.array(cell0.coords)
+        coords[0, 0] += 0.05 + dx
+        return dataclasses.replace(cell0, coords=coords)
+
+    def scf(dx, xc):
+        system = build_scf_system(moved(dx), device=dev)
+        res = scf_kernel(system, xc=xc, df="fftdf", dm0=dm0, conv_tol=1e-11)
+        check(res["converged"], f"13a: the {xc} SCF at dx {dx:+.1e} did not converge")
+        return system, res
+
+    reset_peak(torch, dev)
+    (system, res), s_scf = timed(torch, lambda: scf(0.0, "pbe0"), dev)
+    timer = StageTimer(dev)
+    collocate.launches = 0
+    (g, e_tr), s_grad = timed(torch, lambda: rhf_gradient(
+        system, res, xc="pbe0", return_energy=True, device=dev, timer=timer), dev)
+    k1_launches = collocate.launches
+    peak = peak_gb(torch, dev)
+    st = {k: sum(v) for k, v in timer.seconds.items()}
+    d_e = abs(e_tr - res["e_tot"])
+    log(f"13a PBE0 FFTDF SCF at the main width, atom 0 +0.05 bohr x: {res['niter']} "
+        f"iterations from phase 5's density, {s_scf:.2f} s, E {res['e_tot']:.10f}; "
+        f"rhf_gradient {s_grad:.2f} s: setup {st['setup']:.2f}, energy forward "
+        f"{st['forward']:.2f}, backward {st['backward']:.2f} s (in it the AO-derivative "
+        f"pass {st['ao_vjp']:.2f} s); peak device memory {peak:.2f} GB; K1 launches in "
+        f"the gradient {k1_launches}")
+    log(f"13a traced energy - e_tot {e_tr - res['e_tot']:+.3e} Ha (bar 1e-8); max|F| "
+        f"{np.abs(g).max():.6e}, |sum F| {np.abs(g.sum(0)).max():.3e} Ha/bohr")
+    check(d_e < 1e-8, f"13a: traced energy misses the SCF's by {d_e:.3e} Ha")
+    check(k1_launches > 0, "13a: eval_ao_positions did not launch K1")
+
+    # the central difference: PBE0 while the three SCFs fit in 60 s
+    xc_fd, g_fd = "pbe0", g
+    if 3 * s_scf > 60:
+        xc_fd = "lda,vwn"
+        sys_l, res_l = scf(0.0, xc_fd)
+        g_fd = rhf_gradient(sys_l, res_l, xc=xc_fd, device=dev)
+        del sys_l, res_l
+    (_, rp), s_p = timed(torch, lambda: scf(+FD_STEP, xc_fd), dev)
+    (_, rm), s_m = timed(torch, lambda: scf(-FD_STEP, xc_fd), dev)
+    fd = (rp["e_tot"] - rm["e_tot"]) / (2 * FD_STEP)
+    d_fd = abs(g_fd[0, 0] - fd)
+    log(f"13a {xc_fd} central difference at +-{FD_STEP} bohr ({s_p:.2f} + {s_m:.2f} s, "
+        f"{rp['niter']} / {rm['niter']} iterations): dE/dx {fd:.9f}, gradient "
+        f"{g_fd[0, 0]:.9f} Ha/bohr, |diff| {d_fd:.3e} (bar {FD_BAR})")
+    check(d_fd < FD_BAR, f"13a: the gradient misses the central difference by {d_fd:.3e}")
+
+    # K1 in eval_ao_positions against its plain version at these positions
+    cell = system.cell
+    f64 = dict(dtype=torch.float64, device=dev)
+    packed = PackedBasis.from_cell(cell)
+    collocate.launches = 0
+    ao = eval_ao_positions(packed, torch.as_tensor(cell.uniform_grid(), **f64),
+                           torch.zeros((1, 3), **f64),
+                           torch.as_tensor(cell.coords, **f64), cell=cell)
+    check(collocate.launches > 0, "13a: eval_ao_positions did not launch K1")
+    ev = make_ao_evaluator(cell, device=dev)
+    err = float((ao - plain_aoR(torch, ev, cell.nao)).abs().max())
+    check(err < 1e-12, f"13a: K1 misses its plain version by {err:.3e}")
+    k1 = time_k1(torch, cell, ev, "13a, the moved plan of eval_ao_positions", k1_ptxas())
+    k1["vjp_ms"] = 1e3 * st["ao_vjp"]
+    log(f"13a K1 in eval_ao_positions: max|kernel - plain| {err:.3e} (bar 1e-12); "
+        f"forward (K1 on the moved plan) {k1['ms']:.3f} ms, its VJP (the AO-derivative "
+        f"pass, plain torch) {k1['vjp_ms']:.1f} ms")
+    del ev, ao
+    torch.cuda.empty_cache()
+    return dict(launches=k1_launches, err=err, k1=k1, scf_s=s_scf, grad_s=s_grad)
+
+
+def phase_response_main(torch, main, dev="cuda"):
+    """13b: TDA, TDDFT and Davidson on an LDA FFTDF state of phase 5's cell,
+    then the PBE0 Davidson on phase 5's robust-ISDF state."""
+    import numpy as np
+
+    from pyscf_isdf_tpu_torch.scf import scf_kernel
+    from pyscf_isdf_tpu_torch.tdscf import response, rks
+    from pyscf_isdf_tpu_torch.utils.timing import StageTimer
+
+    system, res5 = main["system"], main["res"]
+    lda, s_lda = timed(torch, lambda: scf_kernel(system, xc="lda,vwn", dm0=res5["dm"],
+                                                 conv_tol=1e-10), dev)
+    check(lda["converged"], "13b: the LDA SCF did not converge")
+    reset_peak(torch, dev)
+    (es, vs), s_ts = timed(torch, lambda: rks.tda_kernel(system, lda, xc="lda,vwn",
+                                                          nstates=5), dev)
+    (et, _), s_tt = timed(torch, lambda: rks.tda_kernel(system, lda, xc="lda,vwn",
+                                                         nstates=5, singlet=False), dev)
+    td, s_td = timed(torch, lambda: rks.tddft_kernel(system, lda, xc="lda,vwn",
+                                                     nstates=5), dev)
+    peak = peak_gb(torch, dev)
+    (ed, _), s_dav = timed(torch, lambda: response.tda_davidson(
+        system, lda, xc="lda,vwn", nstates=5), dev)
+    it_lda = response.davidson.last_iter
+    nov = (system.nelec // 2) * (lda["mo_coeff"].shape[1] - system.nelec // 2)
+    d_dav = float(np.abs(ed - es).max())
+    log(f"13b LDA FFTDF SCF from phase 5's density: {lda['niter']} iterations, "
+        f"{s_lda:.2f} s, E {lda['e_tot']:.10f}; dense n_ov {nov}: TDA singlet {s_ts:.2f} s, "
+        f"triplet {s_tt:.2f} s, TDDFT {s_td:.2f} s, peak device memory {peak:.2f} GB")
+    log(f"13b TDA singlet {np.array2string(es, precision=8)}, triplet "
+        f"{np.array2string(et, precision=8)}, TDDFT {np.array2string(td, precision=8)} Ha")
+    log(f"13b Davidson {s_dav:.2f} s, {it_lda} iterations: |Davidson - dense| "
+        f"{d_dav:.3e} Ha (bar 1e-8)")
+    check(response.davidson.converged and d_dav < 1e-8, "13b: Davidson != dense TDA")
+    check(bool(np.all(td <= es + 1e-10)), "13b: a TDDFT energy lies above its TDA one")
+    check(et[0] < es[0], "13b: the lowest triplet is not below the lowest singlet")
+    fv, _ = rks.tda_oscillator_strengths_velocity(system, lda, es, vs)
+    try:
+        rks.tda_oscillator_strengths(system, lda, es, vs)
+        length = "defined"
+    except NotImplementedError:
+        length = "undefined on the periodic cell (13d takes it on a 0-D box)"
+    log(f"13b oscillator strengths, velocity gauge {np.array2string(fv, precision=6)}; "
+        f"length gauge {length}")
+    check(bool(np.all(np.isfinite(fv))), "13b: oscillator strengths are not finite")
+    del lda
+    torch.cuda.empty_cache()
+
+    # PBE0 on phase 5's robust-ISDF state, the ISDF exchange from its factors
+    timer = StageTimer(dev)
+    make = response.make_tda_matvec
+
+    def timed_matvec(*a, **k):
+        mv, diag = make(*a, **k)
+
+        def mv_t(x):
+            with timer("matvec"):
+                return mv(x)
+        return mv_t, diag
+
+    response.make_tda_matvec = timed_matvec
+    try:
+        (e5, _), s5 = timed(torch, lambda: response.tda_davidson(
+            system, res5, xc="pbe0", isdf=res5["isdf"]), dev)
+    finally:
+        response.make_tda_matvec = make
+    mv_s = timer.seconds["matvec"]
+    log(f"13b PBE0 Davidson on phase 5's robust-ISDF state (ISDF exchange, GGA kernel "
+        f"by directional derivatives): {np.array2string(e5, precision=8)} Ha, "
+        f"{response.davidson.last_iter} iterations, {len(mv_s)} products of "
+        f"{1e3 * statistics.median(mv_s):.1f} ms (median), {s5:.2f} s in all "
+        f"({s5 - sum(mv_s):.2f} s outside the products)")
+    check(response.davidson.converged, "13b: the PBE0 Davidson did not converge")
+    return dict(tda_s=s_ts, tddft_s=s_td, dav_s=s_dav, pbe0_ms=1e3 * statistics.median(mv_s))
+
+
+def phase_k_slice10(torch, ksys, krks, krhf, dev="cuda"):
+    """13c: forces, stress and the k-point TDA on phase 7's certified
+    k-system (nk 27), card against CPU on the same converged states, and
+    the CIS of 10c's KRHF on the k-ISDF factors on the card (its product on
+    the CPU is too slow for the phase: 13d holds that exchange card against
+    CPU on a small cell, and one seeded product of it here)."""
+    import numpy as np
+
+    from pyscf_isdf_tpu_torch.df import isdf_k
+    from pyscf_isdf_tpu_torch.grad import krhf_gradient, kstress_tensor
+    from pyscf_isdf_tpu_torch.tdscf import ktda as ktda_mod, response
+
+    ktda_davidson = ktda_mod.ktda_davidson
+    nk = len(ksys.kpts)
+    cpu = on_cpu(torch, ksys)
+    krks_c, krhf_c = on_dev(torch, krks, "cpu"), on_dev(torch, krhf, "cpu")
+    out = {}
+    for d, system, kr in ((dev, ksys, krks), ("cpu", cpu, krks_c)):
+        g, s_g = timed(torch, lambda: krhf_gradient(system, kr, xc="lda,vwn", device=d), d)
+        (sig, e_s, _), s_s = timed(torch, lambda: kstress_tensor(
+            system, kr, xc="lda,vwn", return_energy=True, device=d), d)
+        (e_t, _), s_t = timed(torch, lambda: ktda_davidson(system, kr, xc="lda,vwn",
+                                                           nstates=3), d)
+        out[d] = dict(g=g, s_g=s_g, sig=sig, e_s=e_s, s_s=s_s, e_t=e_t, s_t=s_t)
+    c, h = out[dev], out["cpu"]
+    d_g, d_s, d_t = (float(np.abs(c[k] - h[k]).max()) for k in ("g", "sig", "e_t"))
+    log(f"13c KRKS LDA (nk {nk}) forces: max|F| {np.abs(c['g']).max():.3e} Ha/bohr "
+        f"(egg-box bar {EGGBOX_BAR}), card {c['s_g']:.2f} s, cpu {h['s_g']:.2f} s, "
+        f"|card - cpu| {d_g:.3e}; stress diag {np.array2string(np.diag(c['sig']), precision=9)} "
+        f"Ha/bohr^3, traced energy - e_tot {c['e_s'] - krks['e_tot']:+.3e}, card "
+        f"{c['s_s']:.2f} s, cpu {h['s_s']:.2f} s, |card - cpu| {d_s:.3e} (bar "
+        f"{SLICE10_CPU_BAR}); k-TDA LDA {np.array2string(c['e_t'], precision=8)} Ha, card "
+        f"{c['s_t']:.2f} s, cpu {h['s_t']:.2f} s, |card - cpu| {d_t:.3e} (bar {TD_CPU_BAR})")
+    check(np.abs(c["g"]).max() < EGGBOX_BAR, "13c: forces above the egg-box bar")
+    check(abs(c["e_s"] - krks["e_tot"]) < 1e-8, "13c: the strain functional misses e_tot")
+    check(d_g < SLICE10_CPU_BAR and d_s < SLICE10_CPU_BAR, "13c: card != CPU")
+    check(d_t < TD_CPU_BAR, "13c: k-TDA card != CPU")
+
+    fac, s_b = timed(torch, lambda: isdf_k.build_isdf_k(ksys.cell, ksys.aoR_k, ksys.kpts,
+                                                        c=KCIS_C), dev)
+    mv_s = []
+    make = ktda_mod.make_ktda_matvec
+
+    def timed_matvec(*a, **k):
+        mv, diag = make(*a, **k)
+
+        def mv_t(x):
+            out, secs = timed(torch, lambda: mv(x), dev)
+            mv_s.append(secs)
+            return out
+        return mv_t, diag
+
+    ktda_mod.make_ktda_matvec = timed_matvec
+    try:
+        (ek, _), s_k = timed(torch, lambda: ktda_mod.ktda_davidson(ksys, krhf, isdfk=fac), dev)
+    finally:
+        ktda_mod.make_ktda_matvec = make
+    log(f"13c k-CIS on 10c's KRHF with the k-ISDF exchange (c={KCIS_C}, n_ip {fac.n_ip}, "
+        f"built in {s_b:.2f} s): {np.array2string(ek, precision=8)} Ha, "
+        f"{response.davidson.last_iter} iterations, {len(mv_s)} products of "
+        f"{1e3 * statistics.median(mv_s):.1f} ms (median), {s_k:.2f} s (its exchange is "
+        f"held card against CPU in 13d)")
+    check(response.davidson.converged, "13c: the k-CIS Davidson did not converge")
+
+    # one seeded product on the same factors, card against CPU
+    prods, secs = [], []
+    for d, system, kr, f in ((dev, ksys, krhf, fac), ("cpu", cpu, krhf_c, on_cpu(torch, fac))):
+        mv, diag = make(system, kr, isdfk=f)
+        rng = np.random.default_rng(10)
+        x = rng.standard_normal(tuple(diag.shape)) + 1j * rng.standard_normal(tuple(diag.shape))
+        p, s_p = timed(torch, lambda: mv(x), d)
+        prods.append(p.cpu().numpy())
+        secs.append(s_p)
+    d_mv = float(np.abs(prods[0] - prods[1]).max() / np.abs(prods[1]).max())
+    log(f"13c k-CIS product on a seeded x: card {1e3 * secs[0]:.1f} ms, cpu "
+        f"{1e3 * secs[1]:.1f} ms, |card - cpu| / max|cpu| {d_mv:.3e} (bar {MV_CPU_BAR})")
+    check(d_mv < MV_CPU_BAR, "13c: the k-CIS product card != CPU")
+    return dict(grad_s=c["s_g"], stress_s=c["s_s"], ktda_s=s_k)
+
+
+def phase_small_slice10(torch, devs=("cuda", "cpu")):
+    """13d: the slice's entry points on the reference tests' small cells,
+    card against CPU (``devs``): SCF energies with equal iteration counts,
+    then forces, stress and excitation energies on the card's state."""
+    import numpy as np
+
+    from pyscf_isdf_tpu_torch import build_cell, lattice
+    from pyscf_isdf_tpu_torch.df.isdf_k import build_isdf_k
+    from pyscf_isdf_tpu_torch.grad import kuhf_gradient, uhf_gradient
+    from pyscf_isdf_tpu_torch.grad.optimize import optimize, optimize_cell
+    from pyscf_isdf_tpu_torch.grad.stress import (rostress_tensor, stress_tensor,
+                                                  ustress_tensor)
+    from pyscf_isdf_tpu_torch.grad.uhf import rohf_gradient
+    from pyscf_isdf_tpu_torch.models import diamond_primitive
+    from pyscf_isdf_tpu_torch.scf import (build_kscf_system, build_scf_system,
+                                          kscf_kernel, kuhf_kernel, rohf_kernel,
+                                          scf_kernel, uhf_kernel)
+    from pyscf_isdf_tpu_torch.tdscf import ktda, rks
+
+    L = 6.0
+
+    def h2(dx=0.0):
+        return build_cell(np.eye(3) * L, [["H", (L / 2 - 0.8 + dx, L / 2, L / 2)],
+                                          ["H", (L / 2 + 0.7, L / 2 + 0.1, L / 2)]],
+                          "gth-szv", pseudo="gth-pade", mesh=(14, 14, 14))
+
+    def h3():
+        return build_cell(np.eye(3) * 7.0, [["H", (2.5, 3.5, 3.5)], ["H", (3.9, 3.6, 3.5)],
+                                            ["H", (5.4, 3.5, 3.5)]],
+                          "gth-szv", pseudo="gth-pade", mesh=(14, 14, 14), spin=1)
+
+    def h3_chain():
+        return build_cell(np.array([[3.4, 0, 0], [0, L, 0], [0, 0, L]]),
+                          [["H", (0.0, 3.0, 3.0)], ["H", (1.45, 3.2, 3.0)],
+                           ["H", (2.4, 3.0, 3.0)]],
+                          "gth-szv", pseudo="gth-pade", mesh=(10, 14, 14), spin=1)
+
+    def h2_box():
+        return build_cell(np.eye(3) * 12.0, [["H", (6.0, 6.0, 5.3)], ["H", (6.0, 6.0, 6.7)]],
+                          [[0, (1.3, 1.0)], [0, (0.25, 1.0)]], mesh=(24, 24, 24),
+                          dimension=0)
+
+    def pair(label, scf_run, props):
+        """SCF on each device (energies, counts), then ``props(system, res,
+        dev)`` (a dict of arrays) on each device from the card's state."""
+        systems, results = [], []
+        for dev in devs:
+            system, res = scf_run(dev)
+            check(res["converged"], f"13d {label} SCF on {dev} did not converge")
+            systems.append(system)
+            results.append(res)
+        e = [r["e_tot"] for r in results]
+        n = [r["niter"] for r in results]
+        out = [props(systems[i], on_dev(torch, results[0], devs[i]), devs[i])
+               for i in range(2)]
+        diff = max(float(np.abs(np.asarray(out[0][k]) - np.asarray(out[1][k])).max())
+                   for k in out[0])
+        log(f"13d {label}: SCF card {e[0]:.12f}, cpu {e[1]:.12f} ({n[0]} / {n[1]} "
+            f"iterations); {', '.join(out[0])} |card - cpu| {diff:.3e}")
+        check(abs(e[0] - e[1]) < SLICE10_CPU_BAR and n[0] == n[1],
+              f"13d {label}: SCF card != CPU")
+        check(diff < SLICE10_CPU_BAR, f"13d {label}: card != CPU")
+
+    def gamma(make, kernel, **kw):
+        def run(dev):
+            system = build_scf_system(make(), device=dev)
+            if kernel is rohf_kernel:
+                kw["device"] = dev
+            return system, kernel(system, **kw)
+        return run
+
+    pair("UKS-LDA H3 uhf_gradient, ustress_tensor",
+         gamma(h3, uhf_kernel, xc="lda,vwn", conv_tol=1e-11),
+         lambda s, r, d: dict(grad=uhf_gradient(s, r, xc="lda,vwn", device=d),
+                              stress=ustress_tensor(s, r, xc="lda,vwn", device=d)))
+    pair("ROHF H3 rohf_gradient, rostress_tensor",
+         gamma(h3, rohf_kernel, conv_tol=1e-13),
+         lambda s, r, d: dict(grad=rohf_gradient(s, r, device=d),
+                              stress=rostress_tensor(s, r, device=d)))
+    pair("HSE06 H2 stress_tensor", gamma(h2, scf_kernel, xc="hse06", conv_tol=1e-11),
+         lambda s, r, d: dict(stress=stress_tensor(s, r, xc="hse06", device=d)))
+
+    def kuhf_run(dev):
+        cell = h3_chain()
+        system = build_kscf_system(cell, lattice.make_kpts(cell.a, [2, 1, 1]), device=dev)
+        return system, kuhf_kernel(system, xc="lda,vwn", conv_tol=1e-12, max_cycle=200,
+                                   device=dev)
+    pair("KUKS-LDA H3 chain kuhf_gradient", kuhf_run,
+         lambda s, r, d: dict(grad=kuhf_gradient(s, r, xc="lda,vwn", device=d)))
+
+    for name, xc, kw in (("HF", None, dict(exxdiv=None)), ("LDA", "lda,vwn", {}),
+                         ("PBE", "pbe", {})):
+        def td(s, r, d, xc=xc):
+            out = {}
+            for singlet in (True, False):
+                tag = "singlet" if singlet else "triplet"
+                out[f"TDA {tag}"] = rks.tda_kernel(s, r, xc=xc, nstates=4, singlet=singlet)[0]
+                out[f"TDDFT {tag}"] = rks.tddft_kernel(s, r, xc=xc, nstates=4,
+                                                       singlet=singlet)
+            return out
+        pair(f"{name} diamond 14^3 dense TDA/TDDFT",
+             gamma(lambda: diamond_primitive(mesh=(14, 14, 14)), scf_kernel, xc=xc,
+                   conv_tol=1e-10, **kw), td)
+
+    # the exchange of ktddft_kernel on one k-ISDF factorization built on
+    # the card (built on each device, near-tied pivots can part)
+    kcell = diamond_primitive(mesh=(10, 10, 10))
+    kkpts = lattice.make_kpts(kcell.a, [2, 1, 1])
+    kfac = {}
+
+    def k_run(dev):
+        system = build_kscf_system(kcell, kkpts, device=dev)
+        if not kfac:
+            kfac["cuda"] = build_isdf_k(kcell, system.aoR_k, kkpts, c=10)
+            kfac["cpu"] = on_cpu(torch, kfac["cuda"])
+        return system, kscf_kernel(system, xc=None, conv_tol=1e-10, device=dev)
+    pair("KRHF diamond 2x1x1 ktddft_kernel (k-ISDF exchange, c=10)", k_run,
+         lambda s, r, d: dict(rpa=ktda.ktddft_kernel(s, r, nstates=3,
+                                                     isdfk=kfac[torch.device(d).type])))
+
+    def osc(s, r, d):
+        e, v = rks.tda_kernel(s, r, nstates=3)
+        return dict(length=rks.tda_oscillator_strengths(s, r, e, v)[0],
+                    velocity=rks.tda_oscillator_strengths_velocity(s, r, e, v)[0])
+    pair("H2 0-D box oscillator strengths",
+         gamma(h2_box, scf_kernel, exxdiv=None, conv_tol=1e-11), osc)
+
+    # each device converges its own SCFs and stops them at the optimizers'
+    # fixed threshold, so the forces part by up to that residual (first
+    # order in it): the bar is OPT_CPU_BAR, not SLICE10_CPU_BAR
+    runs = [optimize(h2(-0.3), xc="lda,vwn", maxsteps=2, device=d)[1] for d in devs]
+    d_opt = max(float(np.abs(np.array(runs[0]["traj"]) - np.array(runs[1]["traj"])).max()),
+                float(np.abs(runs[0]["positions"] - runs[1]["positions"]).max()))
+    cells = [optimize_cell(h2(), xc=None, maxsteps=1, device=d) for d in devs]
+    d_cell = max(float(np.abs(np.array(cells[0][1]["traj"])
+                              - np.array(cells[1][1]["traj"])).max()),
+                 float(np.abs(cells[0][0].a - cells[1][0].a).max()),
+                 float(np.abs(cells[0][0].coords - cells[1][0].coords).max()))
+    log(f"13d optimize (two FIRE steps, H2 LDA): energies, max|F| and positions "
+        f"|card - cpu| {d_opt:.3e}; optimize_cell (one step, H2 HF): energy, max|F|, "
+        f"max|sigma|, lattice and positions |card - cpu| {d_cell:.3e} (bar "
+        f"{OPT_CPU_BAR})")
+    check(runs[0]["nsteps"] == runs[1]["nsteps"], "13d: optimize took unequal steps")
+    check(d_opt < OPT_CPU_BAR and d_cell < OPT_CPU_BAR, "13d: optimizers card != CPU")
+
+
 def main():
     try:
         import torch
@@ -2064,7 +2519,6 @@ def main():
         log(f"{name}: {time.perf_counter() - t0:.1f} s, peak device memory "
             f"{peak_gb(torch, 'cuda'):.2f} GB (phase 5's system and phase 7's k-system "
             "resident)")
-    del ksys, krks, krhf
     torch.cuda.empty_cache()
     slice8 = {"ao_collocate": collocate.launches, "robust_k_cross": robust_k_cross.launches}
     log(f"phase 11: {time.perf_counter() - t11:.1f} s, launches {slice8}")
@@ -2075,12 +2529,29 @@ def main():
     torch.cuda.empty_cache()
     gdf = phase_gdf_main(torch, main_path, ptxas)
     phase_pme(torch, main_path["system"].cell)
-    del main_path
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     phase_small_slice9(torch)
     log(f"12d: {time.perf_counter() - t0:.1f} s")
     log(f"phase 12: {time.perf_counter() - t12:.1f} s")
+    t13 = time.perf_counter()
+    robust_k_cross.launches = 0
+    slice10 = {}
+    for name, fn, args in (("13a", phase_forces_main, (main_path,)),
+                           ("13b", phase_response_main, (main_path,)),
+                           ("13c", phase_k_slice10, (ksys, krks, krhf)),
+                           ("13d", phase_small_slice10, ())):
+        reset_peak(torch, "cuda")
+        t0 = time.perf_counter()
+        slice10[name] = fn(torch, *args)
+        log(f"{name}: {time.perf_counter() - t0:.1f} s, peak device memory "
+            f"{peak_gb(torch, 'cuda'):.2f} GB")
+        torch.cuda.empty_cache()
+    k2_slice10 = robust_k_cross.launches
+    del main_path, ksys, krks, krhf
+    torch.cuda.empty_cache()
+    log(f"phase 13: {time.perf_counter() - t13:.1f} s, K2 launches {k2_slice10}")
+    forces = slice10["13a"]
 
     kernels = [
         dict(name="ao_collocate", route="cuda",
@@ -2096,6 +2567,11 @@ def main():
              slice8=dict(launches=slice8["ao_collocate"]),
              slice9=dict(launches=dict(becke=becke["launches"]["ao_collocate"],
                                        gdf=gdf["launches"])),
+             slice10=dict(launches=forces["launches"], max_abs_err=forces["err"],
+                          ms=forces["k1"]["ms"], plain_ms=forces["k1"]["plain_ms"],
+                          bound_ms=forces["k1"]["bound_ms"],
+                          bound_by=forces["k1"]["bound_by"], library_ms=None,
+                          vjp_ms=forces["k1"]["vjp_ms"]),
              becke_cloud=dict(max_abs_err=becke["err"], ms=becke["k1"]["ms"],
                               plain_ms=becke["k1"]["plain_ms"],
                               bound_ms=becke["k1"]["bound_ms"],
@@ -2119,7 +2595,8 @@ def main():
              open_shell=dict(launches=spin["k2"], uks=spin["uks"],
                              triplet=spin["triplet"]),
              slice8=dict(launches=slice8["robust_k_cross"]),
-             slice9=dict(launches=dict(becke=becke["launches"]["robust_k_cross"]))),
+             slice9=dict(launches=dict(becke=becke["launches"]["robust_k_cross"])),
+             slice10=dict(launches=k2_slice10)),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

@@ -1,6 +1,7 @@
 """Device selection shared by the port's entry points."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -25,3 +26,8 @@ def require_device(tensor: torch.Tensor, device=None) -> torch.device:
         raise ValueError(f"the system lives on {have}, not on {device}: build "
                          f"it with device={str(device)!r}")
     return device
+
+
+def to_host(a):
+    """A tensor (or array-like) as a numpy array on the host."""
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)

@@ -12,11 +12,14 @@ path there is the image-culled kernel of
 :func:`eval_ao_kpts`, which keeps per shell the images that can reach the
 grid (the port of the reference's ``eval_ao(kpt=)`` and
 ``eval_ao_numpy(kpt=)``). Gradients (GGA) are spectral:
-``grad aoR = ifft(iG * fft(aoR))``.
+``grad aoR = ifft(iG * fft(aoR))``. :func:`eval_ao_positions` is aoR as a
+differentiable function of the atom positions, grid points and images
+(the forces and the stress tensor), its backward the analytic AO
+derivatives of :func:`eval_ao_deriv1`'s terms.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -35,6 +38,7 @@ class PackedBasis:
 
     ls: tuple                   # distinct angular momenta present
     centers: dict               # l -> (ns, 3) shell centers
+    atoms: dict                 # l -> (ns,) atom index of each shell
     exps: dict                  # l -> (ns, P) padded exponents
     coeffs: dict                # l -> (ns, P, K) padded coefficients
     col_index: np.ndarray       # (nao_padded,) AO column of each block column
@@ -47,7 +51,7 @@ class PackedBasis:
         for ish, sh in enumerate(cell.shells):
             groups.setdefault(sh.l, []).append((ish, sh))
         ls = tuple(sorted(groups))
-        centers, exps, coeffs = {}, {}, {}
+        centers, atoms, exps, coeffs = {}, {}, {}, {}
         cols = []
         for l in ls:
             shells = groups[l]
@@ -67,7 +71,8 @@ class PackedBasis:
                         cols.append(base + k * (2 * l + 1) + m
                                     if k < sh.nctr else -1)
             centers[l], exps[l], coeffs[l] = ctr, es, cs
-        return cls(ls=ls, centers=centers, exps=exps, coeffs=coeffs,
+            atoms[l] = np.array([sh.atom for _, sh in shells], dtype=np.int64)
+        return cls(ls=ls, centers=centers, atoms=atoms, exps=exps, coeffs=coeffs,
                    col_index=np.array(cols, dtype=np.int64), nao=cell.nao)
 
     def inverse_columns(self) -> np.ndarray:
@@ -77,25 +82,49 @@ class PackedBasis:
         inv[self.col_index[keep]] = np.nonzero(keep)[0]
         return inv
 
+    def ao_atoms(self) -> np.ndarray:
+        """(nao,) atom index of each AO."""
+        per_col = np.concatenate([
+            np.repeat(self.atoms[l], self.coeffs[l].shape[2] * (2 * l + 1))
+            for l in self.ls])
+        out = np.zeros(self.nao, dtype=np.int64)
+        keep = self.col_index >= 0
+        out[self.col_index[keep]] = per_col[keep]
+        return out
+
+    def centers_at(self, positions: torch.Tensor) -> dict:
+        """l -> (ns, 3) shell centers gathered from atom ``positions``
+        (natm, 3), differentiable in them."""
+        return {l: positions[torch.as_tensor(self.atoms[l], device=positions.device)]
+                for l in self.ls}
+
 
 def _eval_block(packed: PackedBasis, images, coords, kpt=None,
-                img_chunk: int = 32):
-    """AO values for one grid block: (nb, nao_padded) in packed order,
-    complex with the image phases e^{i kpt.T} when ``kpt`` is given."""
-    nimg = images.shape[0]
-    npad = (-nimg) % img_chunk
-    # pad with far-away dummy images (contribute exp(-large) = 0)
-    imgs = torch.cat([images, torch.full((npad, 3), 1e6, dtype=images.dtype,
-                                         device=images.device)])
+                img_chunk: int = 32, centers=None, drop=None):
+    """AO values for one grid block: (nb, nao_padded) in packed order;
+    at a k-point ``kpt`` (3,) complex with the image phases e^{i kpt.T},
+    and (nk, nb, nao_padded) for a stack of k-points (nk, 3), every k from
+    one evaluation of the Gaussians. ``centers`` (l -> (ns, 3) tensor)
+    replaces the cell's shell centers. With ``drop`` the images whose every
+    term is below it over the block are skipped (:func:`_reaching_images`)."""
+    kb = None if kpt is None else kpt.reshape(-1, 3)
+    nb = coords.shape[0]
     blocks = []
     for l in packed.ls:
         kw = dict(dtype=coords.dtype, device=coords.device)
-        ctr = torch.as_tensor(packed.centers[l], **kw)                # (ns,3)
+        ctr = (torch.as_tensor(packed.centers[l], **kw) if centers is None
+               else centers[l])                                       # (ns,3)
+        near = images if drop is None else \
+            images[_reaching_images(packed, l, coords, images, drop, ctr)]
+        npad = (-near.shape[0]) % img_chunk
+        # pad with far-away dummy images (contribute exp(-large) = 0)
+        imgs = torch.cat([near, torch.full((npad, 3), 1e6, dtype=images.dtype,
+                                           device=images.device)])
         es = torch.as_tensor(packed.exps[l], **kw)                    # (ns,P)
         cs = torch.as_tensor(packed.coeffs[l], **kw)                  # (ns,P,K)
         ns, K = es.shape[0], cs.shape[2]
-        acc = torch.zeros((ns, coords.shape[0], K, 2 * l + 1),
-                          dtype=coords.dtype if kpt is None else torch.complex128,
+        shape = (ns, nb, K, 2 * l + 1) if kb is None else (kb.shape[0], ns, nb, K, 2 * l + 1)
+        acc = torch.zeros(shape, dtype=coords.dtype if kb is None else torch.complex128,
                           device=coords.device)
         for i0 in range(0, imgs.shape[0], img_chunk):
             T = imgs[i0:i0 + img_chunk]                                # (nt,3)
@@ -104,14 +133,16 @@ def _eval_block(packed: PackedBasis, images, coords, kpt=None,
             r2 = (d * d).sum(-1)
             g = torch.exp(-es[:, None, None, :] * r2[..., None])       # (ns,nb,nt,P)
             ang = solid_harmonics(l, d, torch)                         # (ns,nb,nt,M)
-            if kpt is None:
+            if kb is None:
                 acc = acc + torch.einsum("sntp,spk,sntm->snkm", g, cs, ang)
             else:
-                ph = torch.exp(1j * (T @ kpt))                         # (nt,)
-                acc = acc + torch.einsum("sntp,spk,sntm,t->snkm", g.to(ph.dtype),
-                                         cs.to(ph.dtype), ang.to(ph.dtype), ph)
-        blocks.append(acc.permute(1, 0, 2, 3).reshape(coords.shape[0], -1))
-    return torch.cat(blocks, dim=1)
+                ph = torch.exp(1j * (T @ kb.T))                        # (nt,nk)
+                rad = torch.einsum("sntp,spk->sntk", g, cs)
+                acc = acc + torch.einsum("sntk,sntm,tq->qsnkm", rad.to(ph.dtype),
+                                         ang.to(ph.dtype), ph)
+        blocks.append(acc.transpose(-4, -3).reshape(acc.shape[:-4] + (nb, -1)))
+    out = torch.cat(blocks, dim=-1)
+    return out[0] if kpt is not None and kpt.dim() == 1 else out
 
 
 def eval_ao(packed: PackedBasis, coords, images, kpt=None,
@@ -166,12 +197,14 @@ def _harmonic_grad(l: int, d):
     return torch.stack(out)
 
 
-def _reaching_images(packed, l, c, imgs, drop):
+def _reaching_images(packed, l, c, imgs, drop, ctr=None):
     """Indices of the images through which some shell of angular momentum
     l reaches a point of the block ``c`` with a term of at least ``drop``:
     max_p |c_p| (1 + l + 2 a_p) exp(-a_p d_min^2) max(1, d_max)^(l+1) over
-    the block's bounding sphere bounds the value and the gradient."""
-    ctr = torch.as_tensor(packed.centers[l], dtype=c.dtype, device=c.device)
+    the block's bounding sphere bounds the value and the gradient (shell
+    centers ``ctr``, the cell's by default)."""
+    if ctr is None:
+        ctr = torch.as_tensor(packed.centers[l], dtype=c.dtype, device=c.device)
     es = torch.as_tensor(packed.exps[l], dtype=c.dtype, device=c.device)
     cmax = torch.as_tensor(np.abs(packed.coeffs[l]).max(axis=2), dtype=c.dtype,
                            device=c.device)                       # (ns, P)
@@ -191,7 +224,7 @@ GRAD_DROP = 1e-17   # bound on each term eval_ao_deriv1 skips
 
 def eval_ao_deriv1(packed: PackedBasis, coords, images, kpt=None,
                    block_size: int = 1024, img_chunk: int = 32,
-                   values: bool = True):
+                   values: bool = True, centers=None):
     """AO values and their spatial gradients at every point:
     ((ngrids, nao), (3, ngrids, nao)), complex with the image phases
     e^{i k.T} at a k-point ``kpt``; with ``values=False`` the values are
@@ -201,7 +234,8 @@ def eval_ao_deriv1(packed: PackedBasis, coords, images, kpt=None,
     grad [S_lm(d) e^{-a d^2}] = (grad S_lm(d) - 2 a d S_lm(d)) e^{-a d^2},
     the harmonic's gradient from its monomial expansion. Per block of
     points and l, the images whose every term (value or gradient) is
-    below :data:`GRAD_DROP` over the block are skipped.
+    below :data:`GRAD_DROP` over the block are skipped. ``centers`` (l ->
+    (ns, 3) tensor) replaces the cell's shell centers.
     """
     kw = dict(dtype=coords.dtype, device=coords.device)
     odt = coords.dtype if kpt is None else torch.complex128
@@ -211,13 +245,14 @@ def eval_ao_deriv1(packed: PackedBasis, coords, images, kpt=None,
         nb = c.shape[0]
         bv, bg = [], []
         for l in packed.ls:
-            ctr = torch.as_tensor(packed.centers[l], **kw)
+            ctr = (torch.as_tensor(packed.centers[l], **kw) if centers is None
+                   else centers[l])
             es = torch.as_tensor(packed.exps[l], **kw)
             cs = torch.as_tensor(packed.coeffs[l], **kw)
             ns, K, M = es.shape[0], cs.shape[2], 2 * l + 1
             acc = torch.zeros((ns, nb, K, M), dtype=odt, device=c.device) if values else None
             gacc = torch.zeros((3, ns, nb, K, M), dtype=odt, device=c.device)
-            near = images[_reaching_images(packed, l, c, images, GRAD_DROP)]
+            near = images[_reaching_images(packed, l, c, images, GRAD_DROP, ctr)]
             for i0 in range(0, near.shape[0], img_chunk):
                 T = near[i0:i0 + img_chunk]
                 d = (c[None, :, None, :] - ctr[:, None, None, :]
@@ -292,6 +327,177 @@ def eval_ao_kpts(cell, kpts, coords=None, device=None, img_chunk: int = 32):
                                 ang.to(ph.dtype), ph)
         out[:, :, ao_loc[ish]:ao_loc[ish + 1]] = acc.reshape(len(kpts), ng, sh.nao)
     return out
+
+
+def _k1_positions(cell, positions, coords):
+    """Gamma aoR of ``cell`` with its atoms at ``positions`` on ``coords``
+    through the collocation kernel K1 (:mod:`~pyscf_isdf_tpu_torch.ops.cuda_ao`):
+    the brick plan when ``coords`` is the cell's uniform grid, the slab plan
+    of the explicit points otherwise."""
+    from pyscf_isdf_tpu_torch.ops.cuda_ao import make_ao_evaluator
+
+    moved = replace(cell, coords=positions.detach().cpu().numpy())
+    pts = coords.detach().cpu().numpy()
+    grid = moved.uniform_grid()
+    on_grid = pts.shape == grid.shape and np.allclose(pts, grid, rtol=0, atol=1e-12)
+    return make_ao_evaluator(moved, coords=None if on_grid else pts,
+                             dtype=coords.dtype, device=coords.device)()
+
+
+class _AOPositions(torch.autograd.Function):
+    """aoR(positions, coords, images); see :func:`eval_ao_positions`."""
+
+    @staticmethod
+    def forward(ctx, positions, coords, images, packed, kpt, cell, block_size, timer):
+        centers = packed.centers_at(positions)
+        if coords.device.type == "cpu":
+            out = torch.cat([_eval_block(packed, images, coords[g0:g0 + block_size],
+                                         kpt, centers=centers, drop=GRAD_DROP)
+                             for g0 in range(0, coords.shape[0], block_size)], dim=-2)
+            out = out[..., torch.as_tensor(packed.inverse_columns())]
+        elif cell is None:
+            raise ValueError("eval_ao_positions on the GPU needs cell= (its "
+                             "collocation plan is built from the cell)")
+        elif kpt is None:
+            out = _k1_positions(cell, positions, coords)
+        else:
+            moved = replace(cell, coords=positions.detach().cpu().numpy())
+            out = eval_ao_kpts(moved, kpt.detach().cpu().numpy().reshape(-1, 3),
+                               coords=coords.detach().cpu().numpy(), device=coords.device)
+            out = out[0] if kpt.dim() == 1 else out
+        ctx.save_for_backward(positions, coords, images)
+        ctx.packed, ctx.kpt = packed, None if kpt is None else kpt.detach()
+        ctx.timer = timer
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        positions, coords, images = ctx.saved_tensors
+        need_pos, need_coords, need_imgs = ctx.needs_input_grad[:3]
+        centers = ctx.packed.centers_at(positions)
+        with ctx.timer("ao_vjp"):
+            if need_coords or need_imgs or ctx.kpt is not None:
+                g_pos, g_coords, g_imgs = _ao_vjp_images(ctx.packed, coords, images,
+                                                         centers, ctx.kpt, gout)
+            else:
+                g_pos, g_coords, g_imgs = _ao_vjp_positions(
+                    ctx.packed, coords, images, centers, gout), None, None
+        return (g_pos if need_pos else None, g_coords if need_coords else None,
+                g_imgs if need_imgs else None, None, None, None, None, None)
+
+
+VJP_BLOCK = 8192    # grid points per block of the AO-derivative pass
+
+
+def _ao_vjp_positions(packed, coords, images, centers, gout, block=VJP_BLOCK):
+    """dE/dR_A = -sum_g sum_{mu on A} G(g, mu) grad phi_mu(g) for the
+    Gamma cotangent G = dE/d aoR, the AO gradients from
+    :func:`eval_ao_deriv1` one block of ``block`` points at a time."""
+    natm = 1 + max(int(packed.atoms[l].max()) for l in packed.ls)
+    g_pos = torch.zeros((natm, 3), dtype=coords.dtype, device=coords.device)
+    ao_atom = torch.as_tensor(packed.ao_atoms(), device=coords.device)
+    for g0 in range(0, coords.shape[0], block):
+        _, d1 = eval_ao_deriv1(packed, coords[g0:g0 + block], images,
+                               values=False, centers=centers)      # (3, nb, nao)
+        h = (gout[g0:g0 + block][None] * d1).sum(1)                # (3, nao)
+        g_pos.index_add_(0, ao_atom, -h.T)
+    return g_pos
+
+
+def _ao_vjp_images(packed, coords, images, centers, kpt, gout, block: int = 1024,
+                   img_chunk: int = 32):
+    """The cotangent G = dE/d aoR pulled back onto the atom positions, the
+    grid points and each lattice image: with d = r - A - T every term
+    phi(d_T) of the lattice sum gives Re(conj(G) grad phi(d_T)) to r, and
+    its negative to A and to T. At k-points (``kpt`` (3,) or (nk, 3), G
+    (nk, ng, nao) then) the terms carry e^{i k.T}, summed over k once per
+    image; the phase is held fixed (a strain moves k and T
+    contragradiently, so k.T does not change). Returns (g_positions,
+    g_coords, g_images)."""
+    kw = dict(dtype=coords.dtype, device=coords.device)
+    kb = None if kpt is None else kpt.reshape(-1, 3)
+    natm = 1 + max(int(packed.atoms[l].max()) for l in packed.ls)
+    g_pos = torch.zeros((natm, 3), **kw)
+    g_coords = torch.zeros_like(coords)
+    g_imgs = torch.zeros_like(images)
+    col = torch.as_tensor(packed.col_index, device=coords.device)
+    # the cotangent in packed column order, zero on the padding columns,
+    # with a leading k axis
+    gp = (gout[..., col.clamp(min=0)] * (col >= 0)).reshape(-1, coords.shape[0], col.numel())
+    if kb is not None:
+        gp = gp.conj()
+    for g0 in range(0, coords.shape[0], block):
+        c = coords[g0:g0 + block]
+        nb = c.shape[0]
+        off = 0
+        for l in packed.ls:
+            ctr = centers[l]
+            es = torch.as_tensor(packed.exps[l], **kw)
+            cs = torch.as_tensor(packed.coeffs[l], **kw)
+            ns, K, M = es.shape[0], cs.shape[2], 2 * l + 1
+            gl = gp[:, g0:g0 + block, off:off + ns * K * M].reshape(-1, nb, ns, K, M) \
+                .transpose(1, 2)                                       # (nq,ns,nb,K,M)
+            off += ns * K * M
+            g_ctr = torch.zeros((ns, 3), **kw)
+            near = _reaching_images(packed, l, c, images, GRAD_DROP, ctr)
+            for i0 in range(0, near.shape[0], img_chunk):
+                idx = near[i0:i0 + img_chunk]
+                T = images[idx]
+                d = (c[None, :, None, :] - ctr[:, None, None, :]
+                     - T[None, None, :, :])                            # (ns,nb,nt,3)
+                g = torch.exp(-es[:, None, None, :] * (d * d).sum(-1)[..., None])
+                rad = torch.einsum("sntp,spk->sntk", g, cs)
+                drad = torch.einsum("sntp,spk->sntk", g * (-2.0 * es[:, None, None, :]), cs)
+                if kb is None:
+                    gr = torch.einsum("snkm,sntk->sntm", gl[0], rad)
+                    gd = torch.einsum("snkm,sntk->sntm", gl[0], drad)
+                else:
+                    # sum_k conj(G_k) e^{i k.T} once per image
+                    gph = torch.einsum("qsnkm,tq->sntkm", gl, torch.exp(1j * (T @ kb.T)))
+                    gr = torch.einsum("sntkm,sntk->sntm", gph, rad.to(gph.dtype))
+                    gd = torch.einsum("sntkm,sntk->sntm", gph, drad.to(gph.dtype))
+                ang = solid_harmonics(l, d, torch)
+                h = torch.einsum("sntm,xsntm->xsnt", gr, _harmonic_grad(l, d).to(gr.dtype)) \
+                    + torch.einsum("sntm,sntx->xsnt", gd * ang, d.to(gd.dtype))
+                h = h.real                                             # (3,ns,nb,nt)
+                g_coords[g0:g0 + block] += h.sum((1, 3)).T
+                g_ctr -= h.sum((2, 3)).T
+                g_imgs.index_add_(0, idx, -h.sum((1, 2)).T)
+            g_pos.index_add_(0, torch.as_tensor(packed.atoms[l], device=coords.device),
+                             g_ctr)
+    return g_pos, g_coords, g_imgs
+
+
+def eval_ao_positions(packed: PackedBasis, coords, images, positions, kpt=None,
+                      cell=None, block_size: int = 1024, timer=None):
+    """aoR (ngrids, nao) as a differentiable function of the atom
+    positions, the grid points and the lattice images (the reference's
+    ``eval_ao_positions``: shell centers gathered from ``positions``);
+    (nk, ngrids, nao) for a stack of k-points ``kpt`` (nk, 3).
+
+    Forward: on CPU tensors the plain lattice sum over the images in
+    ``images`` (:func:`eval_ao`'s, complex with the phases e^{i k.T} at a
+    k-point ``kpt``), per block of ``block_size`` points skipping the
+    images whose every term is below :data:`GRAD_DROP` there; on CUDA tensors at Gamma the collocation kernel K1
+    on a plan built for ``cell`` with its atoms at ``positions`` (which
+    takes the images of its own radius), at a k-point the Bloch evaluator
+    :func:`eval_ao_kpts` of that cell. ``cell`` is needed on the GPU.
+
+    Backward: the cotangent is contracted with the analytic AO first
+    derivatives. At Gamma, when only the positions need a gradient, they
+    come from :func:`eval_ao_deriv1` one block of grid points at a time,
+    dE/dR_A = -sum_g sum_{mu on A} G grad phi_mu; when the points or the
+    images need one too (the strain derivative, where points, images and
+    positions all move), and at k-points, the image-resolved terms are
+    summed in the same blocks, every k-point at once. ``kpt`` is not
+    differentiated. ``timer``
+    (a :class:`~pyscf_isdf_tpu_torch.utils.timing.StageTimer`) records the
+    backward's pass as 'ao_vjp'.
+    """
+    from pyscf_isdf_tpu_torch.utils.timing import null_timer
+
+    return _AOPositions.apply(positions, coords, images, packed, kpt, cell, block_size,
+                              timer or null_timer)
 
 
 def shell_rcut(sh, precision: float = 1e-10) -> float:

@@ -52,6 +52,21 @@ def ft_ao(cell, Gv, kpt=None, device=None) -> torch.Tensor:
     return out
 
 
+def converged_st_mesh(cell) -> tuple:
+    """Mesh whose G-truncation error in S/T is below machine precision.
+
+    The FT of a primitive pair decays like exp(-G^2/(4 a_max)); requiring
+    exp(-Gmax^2/(4 a_max)) < 1e-16 gives ke = Gmax^2/2 = 74 a_max, never
+    coarser than the cell's own mesh. A quadrature mesh of the G-space S/T
+    (the force and stress functionals); the SCF grid is unaffected.
+    """
+    from pyscf_isdf_tpu_torch import lattice
+
+    a_max = max(float(sh.exps.max()) for sh in cell.shells)
+    mesh = lattice.cutoff_to_mesh(cell.a, 74.0 * a_max)
+    return tuple(int(max(m, c)) for m, c in zip(mesh, cell.mesh))
+
+
 def _shell_groups(cell):
     """Shells grouped by l: (l, shell indices, centers, padded exps and
     coefficients, AO column of each (shell, contraction, m) or -1)."""

@@ -484,8 +484,24 @@ class XCSpec:
 def _exc_grads(exc_fn, args, spin: bool = False, keep=()):
     """(exc, d(n exc)/d arg for each arg) by autograd, n = args[0], or
     args[0] + args[1] with ``spin``; every arg but those at the positions
-    in ``keep`` is floored at 1e-30 first (the floor is not differentiated,
-    as the reference takes its derivatives at the floored values)."""
+    in ``keep`` is floored at 1e-30 first (the potentials are the
+    derivatives at the floored values, as the reference takes them).
+
+    When an argument requires grad (with grad mode on) the results are
+    differentiable in the arguments: exc keeps its graph and the
+    potentials are built with ``create_graph``, so a force functional can
+    differentiate exc and a response kernel the potentials. The floor is
+    then differentiated as the reference's ``jnp.maximum``: no gradient
+    below it, half at a tie (:func:`_max`). Otherwise nothing is recorded.
+    """
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        args = [a if i in keep else _max(a, _TINY) for i, a in enumerate(args)]
+        args = [a if a.requires_grad else a.detach().requires_grad_(True)
+                for a in args]
+        exc = exc_fn(*args)
+        n = args[0] + args[1] if spin else args[0]
+        grads = torch.autograd.grad((n * exc).sum(), args, create_graph=True)
+        return (exc,) + tuple(grads)
     args = [(a if i in keep else torch.clamp(a, min=_TINY)).detach()
             for i, a in enumerate(args)]
     with torch.enable_grad():

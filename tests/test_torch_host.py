@@ -78,14 +78,17 @@ K_MODULES = ("kpts_helper", "k2gamma", "convert", "scf.khf", "scf.occupations",
              "mp.kmp2", "scf.rohf", "scf.krohf", "scf.kghf", "scf.dftu", "scf.cdft",
              "scf.bands", "scf.analysis", "mp.kmp2_stagger", "ops.becke", "ops.pme",
              "ops.md_int", "ops.md_int_k", "df.gdf", "df.aftdf", "df.aegdf",
-             "scf.x2c", "basis.nwchem")
+             "scf.x2c", "basis.nwchem", "grad", "grad.rhf", "grad.uhf", "grad.khf",
+             "grad.kuhf", "grad.stress", "grad.kstress", "grad.optimize", "tdscf",
+             "tdscf.rks", "tdscf.response", "tdscf.ktda")
 
 
 def test_port_imports_no_jax():
     """Importing every port module, the k-point ones, the graph drivers, the
     meta-GGAs, the open-shell drivers, the IBZ SCF, MP2, the remaining
     mean-field drivers and bands, and the Becke grids, PME, the
-    all-electron integrals, GDF, AFTDF, aegdf and X2C named, leaves jax and
+    all-electron integrals, GDF, AFTDF, aegdf and X2C, and the forces,
+    stress and linear-response packages (grad, tdscf) named, leaves jax and
     the JAX package out of sys.modules (a subprocess: this test process has
     imported jax)."""
     code = (
