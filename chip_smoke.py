@@ -173,7 +173,32 @@ run from the root of a checkout. Phases, each of which fails the script:
      PBE singlet and triplet, ktddft_kernel on one k-ISDF factorization,
      both gauges of oscillator strengths on a 0-D H2 box, two FIRE steps
      of optimize and one step of optimize_cell (each device converges
-     their SCFs to the fixed 1e-10, so they agree to OPT_CPU_BAR).
+     their SCFs to the fixed 1e-10, so they agree to OPT_CPU_BAR);
+ 14. GW, RPA and the electron-phonon coupling, K1's and K2's launches
+     counted from 0 over the phase, each sub-phase's seconds and peak
+     device memory printed: (a) build_lmo (the GDF fit, K1 on the l <= 4
+     auxiliary basis) and gw_ac_gamma(xc='pbe0', nw=100) for all 216
+     orbitals on phase 5's state, the stage seconds (the fit's, mf, pi,
+     factor, w, sigma, pade_newton) and the frequency chunk (converged,
+     finite, 0 < Z < 1); (b) gw_exact_gamma on 14a's Lmo (the HOMO and LUMO
+     sets within GW_EXACT_BAR of 14a; 0.8 < Z < 1 on every level but those
+     whose exact root lies outside (e_HOMO - Omega_min, e_LUMO +
+     Omega_min) with an exact Z below 0.8), rpa_ecorr_gamma against
+     rpa_ecorr_plasmon (RPA_PLASMON_BAR); (c) gw_cd_gamma for the frontier
+     sets at nw 200, eta 1e-4 against 14b (CD_EXACT_BAR) and its Sigma at
+     their QP energies against the Lehmann sum at eta CD_SIGMA_ETA
+     (CD_SIGMA_BAR); (d) kgw_ac (with and
+     without fc) and rpa_ecorr_kpts on phase 7's nk 27 KRKS LDA against
+     gw_ac_gamma and rpa_ecorr_gamma on 13b's LDA state of the supercell
+     (KGW_BAR, KRPA_BAR a cell; the GW gap above the KS gap; fc narrows
+     the k gap by less than 1 Ha); (e) eph_kernel on the diamond primitive
+     cell (12^3 LDA and 14^3 PBE0, disp 2e-3): the translation sum rules
+     (EPH_SUM_BAR), the LDA optical branch (EPH_OPTICAL_CM), hermitian
+     couplings, and card against CPU on the central potential and one
+     displaced step's V - B and force (1e-10); (f) the GW family on the
+     reference tests' small cells card against CPU (Sigma(iw) GW_CPU_REL,
+     QP and correlation energies GW_CPU_QP plus the continuation's
+     conditioning).
 
 It prints the kernels' JSON summary and, as its last line,
 {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -2167,7 +2192,6 @@ def phase_response_main(torch, main, dev="cuda"):
     log(f"13b oscillator strengths, velocity gauge {np.array2string(fv, precision=6)}; "
         f"length gauge {length}")
     check(bool(np.all(np.isfinite(fv))), "13b: oscillator strengths are not finite")
-    del lda
     torch.cuda.empty_cache()
 
     # PBE0 on phase 5's robust-ISDF state, the ISDF exchange from its factors
@@ -2195,7 +2219,8 @@ def phase_response_main(torch, main, dev="cuda"):
         f"{1e3 * statistics.median(mv_s):.1f} ms (median), {s5:.2f} s in all "
         f"({s5 - sum(mv_s):.2f} s outside the products)")
     check(response.davidson.converged, "13b: the PBE0 Davidson did not converge")
-    return dict(tda_s=s_ts, tddft_s=s_td, dav_s=s_dav, pbe0_ms=1e3 * statistics.median(mv_s))
+    return dict(tda_s=s_ts, tddft_s=s_td, dav_s=s_dav, pbe0_ms=1e3 * statistics.median(mv_s),
+                lda=lda)
 
 
 def phase_k_slice10(torch, ksys, krks, krhf, dev="cuda"):
@@ -2424,6 +2449,530 @@ def phase_small_slice10(torch, devs=("cuda", "cpu")):
     check(d_opt < OPT_CPU_BAR and d_cell < OPT_CPU_BAR, "13d: optimizers card != CPU")
 
 
+# ---------------------------------------------------------------- phase 14
+GW_NW = 100               # the AC's quadrature nodes (the reference's default)
+CD_NW, CD_ETA = 200, 1e-4  # the CD oracle test's (tests/test_gw.py:297,306)
+GW_EXACT_BAR = 5e-6       # AC against the Lehmann-sum oracle (tests/test_gw.py:38)
+RPA_PLASMON_BAR = 1e-8    # quadrature against plasmon formula: the reference's
+                          # 1e-10 (tests/test_gw.py:56) over 27 primitive cells,
+                          # rounded up
+CD_EXACT_BAR = 1e-4       # CD QP energies against the oracle (tests/test_gw.py:307)
+CD_SIGMA_BAR = 1e-7       # CD Sigma against the Lehmann sum (tests/test_gw.py:304)
+CD_SIGMA_ETA = 1e-5       # the eta of that check: the CD kernel's eta^2 in its
+                          # denominator biases level m's term by about
+                          # W_m eta^2 / (4 d_m^2), d_m the point's distance from
+                          # e_m; the band edges' QP energies lie 12-37 mHa from
+                          # the nearest level, where eta 1e-4 leaves 2e-7 and
+                          # 1e-5 a hundredth of it (both printed)
+KGW_BAR = 2e-3            # k-GW band edges against the supercell (tests/test_gw.py:174)
+KRPA_BAR = 5e-5           # k-RPA per primitive cell against the supercell (:232)
+EPH_DISP = 2e-3           # bohr, tests/test_eph.py:32,75
+EPH_SUM_BAR = 0.05        # the sum rules, of their scale (tests/test_eph.py)
+EPH_OPTICAL_CM = 60.0     # spread of the optical branch, cm^-1 (tests/test_eph.py)
+EPH_HERM_BAR = 1e-6       # couplings hermitian in the MO basis
+HARTREE2CM = 219474.63
+GW_CPU_REL = 1e-10        # Sigma(iw') card against CPU, relative to its largest entry
+GW_CPU_QP = 1e-8          # QP and correlation energies card against CPU (Ha); an AC's
+                          # QP energies plus its continuation's conditioning (rgw.qp_bars)
+
+
+def degenerate_set(e, i, tol=1e-5):
+    """The orbitals degenerate with orbital ``i`` (within ``tol`` Ha)."""
+    import numpy as np
+
+    return [int(j) for j in np.nonzero(np.abs(e - e[i]) < tol)[0]]
+
+
+def phase_gw_main(torch, main, dev="cuda"):
+    """14a: G0W0-AC (PBE0, nw 100, all 216 orbitals) on phase 5's state with
+    Lmo from the GDF fit (K1 collocates the l <= 4 auxiliary basis)."""
+    import numpy as np
+
+    from pyscf_isdf_tpu_torch.device import to_host
+    from pyscf_isdf_tpu_torch.gw import rgw
+    from pyscf_isdf_tpu_torch.ops.cuda_ao import collocate
+    from pyscf_isdf_tpu_torch.utils.timing import StageTimer
+
+    system, res = main["system"], main["res"]
+    timer = StageTimer(dev)
+    k1_0 = collocate.launches
+    Lmo, s_lmo = timed(torch, lambda: rgw.build_lmo(system, res["mo_coeff"], timer=timer),
+                       dev)
+    k1 = collocate.launches - k1_0
+    peak_lmo = peak_gb(torch, dev)
+    naux, nmo = Lmo.shape[0], Lmo.shape[1]
+    nocc = system.nelec // 2
+    out, s_gw = timed(torch, lambda: rgw.gw_ac_gamma(
+        system, res, xc="pbe0", nw=GW_NW, Lmo=Lmo, timer=timer, device=dev), dev)
+    sec = {k: sum(v) for k, v in timer.seconds.items()}
+    nc = rgw.freq_chunk(GW_NW, naux, nmo * nmo)
+    mo = to_host(res["mo_energy"])
+    z = out.qp_weight
+    gap_ks, gap_gw = mo[nocc] - mo[nocc - 1], out.qp_energy[nocc] - out.qp_energy[nocc - 1]
+    log(f"14a build_lmo (GDF, naux {naux} kept, nmo {nmo}, n_ov {nocc * (nmo - nocc)}): "
+        f"{s_lmo:.2f} s, K1 launched {k1} times, peak {peak_lmo:.2f} GB; stages "
+        + ", ".join(f"{k}={sec[k]:.3f}" for k in ("aux_plan", "aux_ao", "aux_fft", "j2c",
+                                                    "j3c", "eigh", "whiten", "lmo")
+                    if k in sec))
+    log(f"14a gw_ac_gamma(pbe0, nw {GW_NW}, {nmo} orbitals): {s_gw:.2f} s, chunk {nc} "
+        f"frequencies ({len(timer.seconds.get('pi', []))} chunks); stages "
+        + ", ".join(f"{k}={sec.get(k, 0.0):.3f}" for k in ("mf", "pi", "factor", "w",
+                                                            "sigma", "pade_newton"))
+        + f"; converged {out.converged}, Z {z.min():.4f}-{z.max():.4f}, KS gap "
+        f"{gap_ks:.6f} Ha, GW gap {gap_gw:.6f} Ha")
+    low = np.nonzero(~((z > 0.8) & (z < 1.0)))[0]
+    if low.size:
+        log(f"14a Z outside (0.8, 1) for {low.size} orbitals (14b places them): "
+            + ", ".join(f"{int(p)} (e {mo[p]:.4f}, Z {z[p]:.4f})" for p in low))
+    check(k1 > 0, "14a: K1 was not launched by the GDF build")
+    check(out.converged, "14a: a QP equation did not converge")
+    check(bool(np.all(np.isfinite(out.qp_energy))), "14a: QP energies not finite")
+    check(bool(np.all((z > 0.0) & (z < 1.0))), f"14a: Z outside (0, 1): {z.min()}, {z.max()}")
+    return dict(Lmo=Lmo, out=out, k1=k1, seconds=sec, chunk=nc, naux=naux,
+                lmo_s=s_lmo, gw_s=s_gw)
+
+
+def phase_gw_exact_main(torch, main, gw, dev="cuda"):
+    """14b: the Lehmann-sum oracle and the RPA plasmon formula on 14a's Lmo."""
+    import numpy as np
+
+    from pyscf_isdf_tpu_torch.device import to_host
+    from pyscf_isdf_tpu_torch.gw import gw_exact, rgw
+    from pyscf_isdf_tpu_torch.utils.timing import StageTimer
+
+    system, res = main["system"], main["res"]
+    Lmo, out = gw["Lmo"], gw["out"]
+    mo = to_host(res["mo_energy"])
+    nocc = system.nelec // 2
+    (qp_ex, conv), s_ex = timed(torch, lambda: gw_exact.gw_exact_gamma(
+        system, res, xc="pbe0", Lmo=Lmo, device=dev), dev)
+    peak = peak_gb(torch, dev)
+    homo, lumo = degenerate_set(mo, nocc - 1), degenerate_set(mo, nocc)
+    front = homo + lumo
+    d = np.abs(out.qp_energy - qp_ex)
+    d_front = float(d[front].max())
+    log(f"14b gw_exact_gamma (dense dRPA, n_ov {nocc * (len(mo) - nocc)}): {s_ex:.2f} s, "
+        f"peak {peak:.2f} GB, converged {conv}; |AC - exact| frontier (HOMO set {homo}, "
+        f"LUMO set {lumo}) {d_front:.3e} Ha (bar {GW_EXACT_BAR}), all orbitals "
+        f"{float(d.max()):.3e} Ha (orbital {int(d.argmax())})")
+    # the oracle's own Z at its roots for the orbitals 14a's AC puts outside
+    # (0.8, 1), and the Lehmann sums 14c reads at the band edges
+    z = out.qp_weight
+    low = [int(p) for p in np.nonzero(~((z > 0.8) & (z < 1.0)))[0]]
+    cols = sorted(set(low) | {nocc - 1, nocc})
+    (om, xpy, _, _), s_eig = timed(torch, lambda: gw_exact.drpa_diagonalize(mo, nocc, Lmo),
+                                   dev)
+    tdm = gw_exact._transition_densities(xpy, Lmo, nocc, cols)
+    del xpy
+    # Sigma's poles lie below e_HOMO - Omega_min and above e_LUMO +
+    # Omega_min (Omega_min the lowest dRPA excitation): a QP root between
+    # them is isolated, one outside lies among the poles of the two-particle
+    # continua. The oracle decides which levels the reference's 0.8 < Z < 1
+    # spares: those whose exact root lies in a continuum and whose exact Z
+    # there is below 0.8 (no quasiparticle for the AC to find)
+    win = (mo[nocc - 1] - float(om[0]), mo[nocc] + float(om[0]))
+    iso = (qp_ex > win[0]) & (qp_ex < win[1])
+    de = 1e-6
+    spared = []
+    for p in low:
+        j = cols.index(p)
+
+        def sig(w, j=j):
+            return gw_exact.exact_sigma(w, mo, nocc, om, tdm, j).real
+        z_ex = 1.0 / (1.0 - (sig(qp_ex[p] + de) - sig(qp_ex[p] - de)) / (2 * de))
+        if not iso[p] and z_ex < 0.8:
+            spared.append(p)
+        log(f"14b orbital {p} (e {mo[p]:.4f}, exact root "
+            f"{'isolated' if iso[p] else 'in a continuum'}): Z AC {z[p]:.4f}, exact "
+            f"{z_ex:.4f}; QP AC {out.qp_energy[p]:.6f}, exact {qp_ex[p]:.6f}")
+    held = np.setdiff1d(np.arange(len(mo)), spared)
+    log(f"14b isolated QP window ({win[0]:.4f}, {win[1]:.4f}) Ha (Omega_min "
+        f"{float(om[0]):.6f}): {int(iso.sum())} exact roots inside, {int((~iso).sum())} "
+        f"in the continua; 0.8 < Z < 1 held on {held.size} levels (AC Z "
+        f"{z[held].min():.4f}-{z[held].max():.4f}), spared {len(spared)} whose exact root "
+        f"lies in a continuum with exact Z below 0.8")
+    check(conv, "14b: an exact QP equation did not converge")
+    check(d_front < GW_EXACT_BAR, "14b: frontier AC != exact")
+    check(bool(np.all((z[held] > 0.8) & (z[held] < 1.0))),
+          "14b: Z outside (0.8, 1) on a level the oracle does not spare")
+    timer = StageTimer(dev)
+    ec_q, s_q = timed(torch, lambda: rgw.rpa_ecorr_gamma(system, res, nw=GW_NW, Lmo=Lmo,
+                                                         timer=timer, device=dev), dev)
+    ec_p, s_p = timed(torch, lambda: gw_exact.rpa_ecorr_plasmon(mo, nocc, Lmo), dev)
+    sec = {k: sum(v) for k, v in timer.seconds.items()}
+    log(f"14b rpa_ecorr_gamma {ec_q:.12f} Ha ({s_q:.2f} s: pi {sec.get('pi', 0):.3f}, "
+        f"factor {sec.get('factor', 0):.3f}), plasmon {ec_p:.12f} Ha ({s_p:.2f} s), |diff| "
+        f"{abs(ec_q - ec_p):.3e} (bar {RPA_PLASMON_BAR})")
+    check(ec_p < 0 and abs(ec_q - ec_p) < RPA_PLASMON_BAR, "14b: RPA quadrature != plasmon")
+    return dict(qp_ex=qp_ex, homo=homo, lumo=lumo, front=front, exact_s=s_ex,
+                rpa_s=s_q, plasmon_s=s_p, ec=ec_q, omega=om, tdm=tdm, cols=cols,
+                eigh_s=s_eig)
+
+
+def phase_gw_cd_main(torch, main, gw, ex, dev="cuda"):
+    """14c: contour deformation for the frontier orbitals (nw 200, eta
+    1e-4) against 14b's oracle, and its Sigma at the HOMO and LUMO energies
+    against the Lehmann sum."""
+    import numpy as np
+
+    from pyscf_isdf_tpu_torch.device import to_host
+    from pyscf_isdf_tpu_torch.gw import gw_cd, gw_exact, rgw
+
+    system, res = main["system"], main["res"]
+    Lmo = gw["Lmo"]
+    mo = to_host(res["mo_energy"])
+    nocc = system.nelec // 2
+    front = ex["front"]
+    out, s_cd = timed(torch, lambda: gw_cd.gw_cd_gamma(
+        system, res, xc="pbe0", nw=CD_NW, orbs=front, eta=CD_ETA, Lmo=Lmo, device=dev), dev)
+    d_qp = float(np.abs(out.qp_energy[front] - ex["qp_ex"][front]).max())
+    ef = 0.5 * (mo[nocc - 1] + mo[nocc])
+    pts = (nocc - 1, nocc)
+    om, tdm, s_eig = ex["omega"], ex["tdm"], ex["eigh_s"]
+    f, w = rgw.scaled_legendre(CD_NW)
+    Wiw = to_host(gw_cd._w_batched_z(Lmo, mo, nocc, -f ** 2 + 0j, cols=pts))
+    # Sigma by CD against the Lehmann sum at the HOMO's and LUMO's QP
+    # energies (the roots 14b found), at CD_SIGMA_ETA (held) and CD_ETA
+    # (printed: the eta^2 bias); at their KS energies too, where the grid's
+    # near-degenerate partners (split below eta) sit within eta of the
+    # point, the CD formula's own limit (printed, not held)
+    d_sig, d_eta, d_ks = 0.0, 0.0, 0.0
+    gaps = [float(np.abs(mo - ex["qp_ex"][p]).min()) for p in pts]
+    for io, p in enumerate(pts):
+        j = ex["cols"].index(p)
+        for x in (ex["qp_ex"][p], mo[p]):
+            s_ex_p = gw_exact.exact_sigma(x, mo, nocc, om, tdm, j, eta=1e-6).real
+            d = [abs(gw_cd._sigma_cd_point(Wiw, w, mo, nocc, Lmo, p, x, ef, eta, f,
+                                           col=io).real - s_ex_p)
+                 for eta in (CD_ETA, CD_SIGMA_ETA)]
+            if x == mo[p]:
+                d_ks = max(d_ks, d[0])
+            else:
+                d_eta, d_sig = max(d_eta, d[0]), max(d_sig, d[1])
+    del ex["tdm"], ex["omega"], tdm, om
+    log(f"14c gw_cd_gamma (nw {CD_NW}, eta {CD_ETA}, {len(front)} frontier orbitals): "
+        f"{s_cd:.2f} s, converged {out.converged}; |CD - exact| {d_qp:.3e} Ha (bar "
+        f"{CD_EXACT_BAR}); Sigma at the HOMO and LUMO QP energies (nearest mean-field "
+        f"level {gaps[0]:.2e} and {gaps[1]:.2e} Ha away) |CD - Lehmann| {d_sig:.3e} at eta "
+        f"{CD_SIGMA_ETA} (bar {CD_SIGMA_BAR}), {d_eta:.3e} at eta {CD_ETA}; at their KS "
+        f"energies {d_ks:.3e} at eta {CD_ETA}")
+    check(out.converged and d_qp < CD_EXACT_BAR, "14c: CD QP != exact")
+    check(d_sig < CD_SIGMA_BAR, "14c: CD Sigma != Lehmann sum")
+    return dict(cd_s=s_cd)
+
+
+def phase_gw_k(torch, main, ksys, krks, lda, dev="cuda"):
+    """14d: k-GW and k-RPA on phase 7's nk 27 KRKS LDA against GW and RPA on
+    13b's LDA state of the supercell."""
+    import numpy as np
+
+    from pyscf_isdf_tpu_torch.device import to_host
+    from pyscf_isdf_tpu_torch.gw import krgw, rgw
+    from pyscf_isdf_tpu_torch.utils.timing import StageTimer
+
+    system = main["system"]
+    Ls, s_ls = timed(torch, lambda: rgw.build_lmo(system, lda["mo_coeff"]), dev)
+    out_s, s_s = timed(torch, lambda: rgw.gw_ac_gamma(system, lda, xc="lda,vwn", nw=GW_NW,
+                                                      Lmo=Ls, device=dev), dev)
+    ec_s, s_es = timed(torch, lambda: rgw.rpa_ecorr_gamma(system, lda, nw=GW_NW, Lmo=Ls,
+                                                          device=dev), dev)
+    del Ls
+    torch.cuda.empty_cache()
+    timer = StageTimer(dev)
+    Lk, s_lk = timed(torch, lambda: krgw.build_lmo_kpts(ksys, krks["mo_coeff"]), dev)
+    out_k, s_k = timed(torch, lambda: krgw.kgw_ac(ksys, krks, xc="lda,vwn", nw=GW_NW, Lmo=Lk,
+                                                  device=dev, timer=timer), dev)
+    out_fc, s_fc = timed(torch, lambda: krgw.kgw_ac(ksys, krks, xc="lda,vwn", nw=GW_NW,
+                                                    Lmo=Lk, fc=True, device=dev), dev)
+    ec_k, s_ek = timed(torch, lambda: krgw.rpa_ecorr_kpts(ksys, krks, nw=GW_NW, Lmo=Lk,
+                                                          device=dev), dev)
+    del Lk
+    nk = len(ksys.kpts)
+    nk_, ns = out_k.nocc, out_s.nocc
+    homo_k, lumo_k = out_k.qp_energy[:, nk_ - 1].max(), out_k.qp_energy[:, nk_].min()
+    homo_f, lumo_f = out_fc.qp_energy[:, nk_ - 1].max(), out_fc.qp_energy[:, nk_].min()
+    homo_s, lumo_s = out_s.qp_energy[ns - 1], out_s.qp_energy[ns]
+    mo_s = to_host(lda["mo_energy"])
+    d_h, d_l = abs(homo_k - homo_s), abs(lumo_k - lumo_s)
+    d_ec = abs(ec_k - ec_s / nk)
+    g0, g1 = lumo_k - homo_k, lumo_f - homo_f
+    log(f"14d supercell LDA: build_lmo {s_ls:.2f} s, gw_ac_gamma {s_s:.2f} s, "
+        f"rpa_ecorr_gamma {s_es:.2f} s; nk {nk}: build_lmo_kpts {s_lk:.2f} s, kgw_ac "
+        f"{s_k:.2f} s (transfers {sum(timer.seconds.get('transfer', [])):.2f} s, "
+        f"pade_newton {sum(timer.seconds.get('pade_newton', [])):.2f} s), fc=True "
+        f"{s_fc:.2f} s, rpa_ecorr_kpts {s_ek:.2f} s")
+    log(f"14d QP HOMO k {homo_k:.8f} / supercell {homo_s:.8f} (|diff| {d_h:.3e}), LUMO "
+        f"{lumo_k:.8f} / {lumo_s:.8f} (|diff| {d_l:.3e}; bar {KGW_BAR}); Ec per cell k "
+        f"{ec_k:.10f} / supercell {ec_s / nk:.10f} (|diff| {d_ec:.3e}, bar {KRPA_BAR}); "
+        f"supercell gaps KS {mo_s[ns] - mo_s[ns - 1]:.6f}, GW {lumo_s - homo_s:.6f}; k gap "
+        f"{g0:.6f}, with fc {g1:.6f} Ha")
+    check(out_k.converged and out_s.converged and out_fc.converged,
+          "14d: a QP equation did not converge")
+    check(d_h < KGW_BAR and d_l < KGW_BAR, "14d: k-GW band edges != supercell")
+    check(d_ec < KRPA_BAR, "14d: k-RPA != supercell RPA")
+    check(lumo_s - homo_s > mo_s[ns] - mo_s[ns - 1], "14d: GW did not open the LDA gap")
+    check(g1 < g0 and g0 - g1 < 1.0, "14d: the head/wing correction is out of range")
+    return dict(kgw_s=s_k, fc_s=s_fc, krpa_s=s_ek, sc_gw_s=s_s)
+
+
+def phase_eph(torch, dev="cuda"):
+    """14e: eph_kernel on the card (diamond primitive 12^3 LDA, 14^3 PBE0,
+    disp 2e-3): the sum rules, the optical branch, hermitian couplings, and
+    card against CPU on the central potential and one displaced step."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from pyscf_isdf_tpu_torch.device import to_host
+    from pyscf_isdf_tpu_torch.eph import eph_fd, eph_kernel
+    from pyscf_isdf_tpu_torch.grad.rhf import rhf_gradient
+    from pyscf_isdf_tpu_torch.models import diamond_primitive
+    from pyscf_isdf_tpu_torch.ops import pp
+    from pyscf_isdf_tpu_torch.ops.ao_eval import ao_gradient_fft
+    from pyscf_isdf_tpu_torch.ops.xc import XCSpec
+    from pyscf_isdf_tpu_torch.scf import build_scf_system, scf_kernel
+    from pyscf_isdf_tpu_torch.utils.timing import StageTimer
+
+    out = {}
+    for xc, mesh in (("lda,vwn", 12), ("pbe0", 14)):
+        cell = diamond_primitive(mesh=(mesh,) * 3)
+        spec = XCSpec(xc)
+        timer = StageTimer(dev)
+        reset_peak(torch, dev)
+        res, s_eph = timed(torch, lambda: eph_kernel(cell, xc=xc, disp=EPH_DISP, device=dev,
+                                                     timer=timer), dev)
+        peak = peak_gb(torch, dev)
+        sec = {k: sum(v) for k, v in timer.seconds.items()}
+        sys0 = build_scf_system(cell, device=dev)
+        res0 = scf_kernel(sys0, xc=xc, conv_tol=1e-12)
+        V0, frozen, family = eph_fd._v_and_frozen(cell, sys0, res0, spec)
+        natm, nao = cell.natm, cell.nao
+        vm = res.vmat.reshape(natm, 3, nao, nao)
+        c0 = np.asarray(cell.coords)
+        d = 1e-4
+        worst = 0.0
+        for x in range(3):
+            lhs = vm[:, x].sum(axis=0)
+            shift = d * np.eye(3)[x] / 2
+            if family == "lda":
+                # the analytic basis-gradient term, the projectors pinned
+                aoR = sys0.aoR
+                ao_g = ao_gradient_fft(aoR, sys0.mesh, sys0.Gv)
+                vhxc = frozen["vHR"] + frozen["vrho"]
+                half = (ao_g[x].T * frozen["vlocR"]) @ aoR \
+                    + sys0.weight * ((ao_g[x].T * vhxc) @ aoR)
+                vnl_d = (pp.get_vppnl(replace(cell, coords=c0 + shift), device=dev,
+                                      pp_coords=c0)
+                         - pp.get_vppnl(replace(cell, coords=c0 - shift), device=dev,
+                                        pp_coords=c0)) / d
+                rhs = to_host(half + half.T - vnl_d)
+            else:
+                # minus the rigid-translation derivative of the frozen operator
+                bs = [eph_fd._frozen_matrix(
+                    replace(cell, coords=c0 + s), build_scf_system(
+                        replace(cell, coords=c0 + s), device=dev), frozen, family, c0)
+                    for s in (shift, -shift)]
+                rhs = -to_host(bs[0] - bs[1]) / d
+            worst = max(worst, float(np.abs(lhs - rhs).max() / np.abs(lhs).max()))
+        herm = float(np.abs(res.g - res.g.transpose(0, 2, 1)).max())
+        w_cm = res.omega * HARTREE2CM
+        # card against CPU on the card's states: the central potential and
+        # frozen grids, then one displaced step's V - B and force
+        sys_c, res0_c = on_cpu(torch, sys0), on_dev(torch, res0, "cpu")
+        V0_c, frozen_c, _ = eph_fd._v_and_frozen(cell, sys_c, res0_c, spec)
+        d_cpu = float((V0 - V0_c.to(dev)).abs().max())
+        for k in ("vlocR", "vHR", "vrho", "vsigma", "grho", "mo_w_grid"):
+            if k in frozen:
+                d_cpu = max(d_cpu, float((frozen[k] - frozen_c[k].to(dev)).abs().max()))
+        c = c0.copy()
+        c[0, 0] += EPH_DISP / 2
+        cell_d = replace(cell, coords=c)
+        sys_d = build_scf_system(cell_d, device=dev)
+        res_d = scf_kernel(sys_d, xc=xc, conv_tol=1e-12, dm0=res0["dm"])
+        sys_dc, res_dc = on_cpu(torch, sys_d), on_dev(torch, res_d, "cpu")
+
+        def step(s, r, fr, dv):
+            vb = eph_fd._v_and_frozen(cell_d, s, r, spec)[0] \
+                - eph_fd._frozen_matrix(cell_d, s, fr, family, c0)
+            return to_host(vb), to_host(rhf_gradient(s, r, xc=xc, device=dv))
+        (vb, g), (vb_c, g_c) = step(sys_d, res_d, frozen, dev), \
+            step(sys_dc, res_dc, frozen_c, "cpu")
+        d_cpu = max(d_cpu, float(np.abs(vb - vb_c).max()), float(np.abs(g - g_c).max()))
+        log(f"14e eph_kernel diamond primitive {mesh}^3 {xc} (disp {EPH_DISP}, "
+            f"{len(res.niter)} SCFs, iterations {min(res.niter)}-{max(res.niter)}): "
+            f"{s_eph:.2f} s (scf {sec.get('scf', 0):.2f}, potential "
+            f"{sec.get('potential', 0):.2f}, gradient {sec.get('gradient', 0):.2f}), peak "
+            f"{peak:.2f} GB; frequencies {np.array2string(w_cm, precision=1)} cm^-1; "
+            f"sum rules worst {worst:.4f} of scale (bar {EPH_SUM_BAR}); hermiticity "
+            f"{herm:.2e} (bar {EPH_HERM_BAR}); card against CPU (central V and frozen "
+            f"grids, one step's V - B and force) {d_cpu:.3e} (bar {SLICE10_CPU_BAR})")
+        check(worst < EPH_SUM_BAR, f"14e {xc}: a sum rule fails")
+        check(herm < EPH_HERM_BAR and res.g.shape[0] > 0, f"14e {xc}: couplings not hermitian")
+        if family == "lda":
+            check(np.ptp(w_cm[:3]) < EPH_OPTICAL_CM
+                  and w_cm[2] > 1.5 * np.abs(w_cm[3:]).max(), "14e: optical branch")
+        check(d_cpu < SLICE10_CPU_BAR, f"14e {xc}: card != CPU")
+        out[xc] = dict(seconds=s_eph, worst=worst)
+    return out
+
+
+def phase_small_slice11(torch, devs=("cuda", "cpu")):
+    """14f: the GW family on the reference tests' small cells, card against
+    CPU: SCFs with equal iteration counts (1e-10 Ha), then each method on the
+    card's state (and the card's Lmo where the method takes one) on each
+    device (the H3 UKS cell: each device's own state at conv_tol 1e-14, the
+    counts printed): Sigma(iw') 1e-10 relative, QP and correlation
+    energies 1e-8 Ha (the AC's plus its conditioning)."""
+    import numpy as np
+
+    from pyscf_isdf_tpu_torch import build_cell, lattice
+    from pyscf_isdf_tpu_torch.device import to_host
+    from pyscf_isdf_tpu_torch.gw import gw_cd, krgw, rgw, ugw
+    from pyscf_isdf_tpu_torch.models import diamond_primitive
+    from pyscf_isdf_tpu_torch.scf import (build_kscf_system, build_scf_system,
+                                          kscf_kernel, scf_kernel, uhf_kernel)
+
+    L = 8.0
+
+    def h3():
+        return build_cell(np.eye(3) * L, [["H", (L / 2 - 1.5, L / 2, L / 2)],
+                                          ["H", (L / 2, L / 2, L / 2)],
+                                          ["H", (L / 2 + 1.5, L / 2, L / 2)]],
+                          "gth-szv", pseudo="gth-pade", mesh=[12] * 3, spin=1)
+
+    def moved(v, dev):
+        if isinstance(v, list):
+            return [moved(x, dev) for x in v]
+        return v.to(dev)
+
+    worst = {"sigma": 0.0, "qp": 0.0, "ec": 0.0}
+
+    def pair(label, scf_run, props, independent=False):
+        """SCF on each device (energies 1e-10 Ha, equal counts), then
+        ``props`` on each device from the card's state; with
+        ``independent`` each device's props take its own state, and the
+        counts are printed, not compared."""
+        systems, results = [], []
+        for dev in devs:
+            system, res = scf_run(dev)
+            check(res["converged"], f"14f {label} SCF on {dev} did not converge")
+            systems.append(system)
+            results.append(res)
+        e = [r["e_tot"] for r in results]
+        n = [r["niter"] for r in results]
+        log(f"14f {label}: SCF {n[0]} / {n[1]} iterations, E {e[0]:.12f} / {e[1]:.12f}")
+        check(abs(e[0] - e[1]) < SLICE10_CPU_BAR, f"14f {label}: SCF energies card != CPU")
+        check(n[0] == n[1] or independent, f"14f {label}: SCF counts card != CPU")
+        shared = {}
+        outs = [props(systems[i], on_dev(torch, results[i if independent else 0], devs[i]),
+                      devs[i], shared)
+                for i in range(2)]
+        line = []
+        for key, (kind, a) in outs[0].items():
+            b = outs[1][key][1]
+            if kind == "sigma":
+                diff = float(np.abs(a - b).max() / np.abs(b).max())
+                ok = diff < GW_CPU_REL
+            elif kind == "ec":
+                diff = abs(a - b)
+                ok = diff < GW_CPU_QP
+            else:                           # (QP energies, per-orbital bars)
+                (qa, bar), qb = a, b[0]
+                diff = float(np.abs(np.asarray(qa) - np.asarray(qb)).max())
+                ok = bool(np.all(np.abs(np.asarray(qa) - np.asarray(qb)) < bar))
+                kind = "qp"
+            worst[kind] = max(worst[kind], diff)
+            line.append(f"{key} {diff:.2e}")
+            check(ok, f"14f {label}: {key} card != CPU ({diff:.3e})")
+        log(f"14f {label}: |card - cpu| " + ", ".join(line))
+
+    def gamma(cell_fn, kernel, **kw):
+        def run(dev):
+            system = build_scf_system(cell_fn(), device=dev)
+            return system, kernel(system, **kw)
+        return run
+
+    def qp(out, evgw=False):
+        return ("qpbar", (out.qp_energy, rgw.qp_bars(out, evgw)))
+
+    def lmo_of(system, res, dev, shared):
+        if "L" not in shared:
+            shared["L"] = rgw.build_lmo(system, res["mo_coeff"])
+        return moved(shared["L"], dev)
+
+    def lda12_props(s, r, dev, shared):
+        L_ = lmo_of(s, r, dev, shared)
+        ac = rgw.gw_ac_gamma(s, r, xc="lda,vwn", Lmo=L_, device=dev)
+        ev = rgw.evgw_gamma(s, r, xc="lda,vwn", Lmo=L_, device=dev)
+        cd = gw_cd.gw_cd_gamma(s, r, xc="lda,vwn", orbs=[0, 3, 4], Lmo=L_, device=dev)
+        return {"Sigma(iw) AC": ("sigma", ac.sigma_iw), "QP AC": qp(ac),
+                "QP evGW": qp(ev, True),
+                "QP CD": ("qpbar", (cd.qp_energy, GW_CPU_QP)),
+                "Ec RPA": ("ec", rgw.rpa_ecorr_gamma(s, r, Lmo=L_, device=dev))}
+    pair("diamond 12^3 LDA (AC, evGW, CD, RPA)",
+         gamma(lambda: diamond_primitive(mesh=(12,) * 3), scf_kernel, xc="lda,vwn"),
+         lda12_props)
+
+    def kpair(label, mesh_k):
+        cell = diamond_primitive(mesh=(12,) * 3)
+        kpts = (np.zeros((1, 3)) if mesh_k == 1
+                else lattice.make_kpts(cell.a, [2, 1, 1]))
+
+        def run(dev):
+            system = build_kscf_system(cell, kpts, device=dev)
+            return system, kscf_kernel(system, xc="lda,vwn", device=dev)
+
+        def props(s, r, dev, shared):
+            if "L" not in shared:
+                shared["L"] = krgw.build_lmo_kpts(s, r["mo_coeff"])
+            L_ = moved(shared["L"], dev)
+            out = krgw.kgw_ac(s, r, xc="lda,vwn", Lmo=L_, device=dev)
+            res = {"Sigma(iw) k-AC": ("sigma", out.sigma_iw), "QP k-AC": qp(out),
+                   "Ec k-RPA": ("ec", krgw.rpa_ecorr_kpts(s, r, Lmo=L_, device=dev))}
+            if mesh_k == 1:
+                cd = gw_cd.kgw_cd(s, r, xc="lda,vwn", orbs=[0, 3, 4], Lmo=L_, device=dev)
+                res["QP k-CD"] = ("qpbar", (cd.qp_energy[:, [0, 3, 4]], GW_CPU_QP))
+            return res
+        pair(label, run, props)
+    kpair("diamond 12^3 k 1x1x1 LDA (k-AC, k-CD, k-RPA)", 1)
+    kpair("diamond 12^3 k 2x1x1 LDA (k-AC, k-RPA)", 2)
+
+    pair("diamond 14^3 HSE06 (AC)",
+         gamma(lambda: diamond_primitive(mesh=(14,) * 3), scf_kernel, xc="hse06",
+               conv_tol=1e-11),
+         lambda s, r, dev, sh: (lambda o: {"Sigma(iw) AC": ("sigma", o.sigma_iw),
+                                           "QP AC": qp(o)})(
+             rgw.gw_ac_gamma(s, r, xc="hse06", device=dev)))
+
+    def ugw_props(s, r, dev, shared):
+        o = ugw.ugw_ac_gamma(s, r, xc=None, device=dev)
+        bars = rgw.qp_bars(o)
+        return {"Sigma(iw) UGW a": ("sigma", o.sigma_iw[0]),
+                "Sigma(iw) UGW b": ("sigma", o.sigma_iw[1]),
+                "QP UGW a": ("qpbar", (o.qp_energy[0], bars[0])),
+                "QP UGW b": ("qpbar", (o.qp_energy[1], bars[1])),
+                "Ec URPA": ("ec", ugw.urpa_ecorr_gamma(s, r, device=dev))}
+    pair("H3 radical UHF (UGW, URPA)", gamma(h3, uhf_kernel, xc=None), ugw_props)
+    # the SCF stops once |dE| < conv_tol and its DIIS error is below
+    # sqrt(conv_tol), which bounds the density only to about that: at the
+    # reference's 1e-10 this cell stops after 6, 11 or 12 iterations with
+    # the host's thread count, and at 1e-12 the card's density is 6.5e-7
+    # from the CPU's, which moves the UGW-CD level by 2.1e-7 Ha. 1e-14
+    # takes each device to the fixed point (densities 5.1e-10 apart, the
+    # level 1.6e-10), each in its own count of iterations; each device's
+    # UGW-CD then runs on its own state
+    pair("H3 radical UKS LDA (UGW-CD, deepest level)",
+         gamma(h3, uhf_kernel, xc="lda,vwn", conv_tol=1e-14),
+         lambda s, r, dev, sh: (lambda o: {
+             "QP UGW-CD": ("qpbar", (np.array([o.qp_energy[0][0], o.qp_energy[1][0]]),
+                                     GW_CPU_QP))})(
+             gw_cd.ugw_cd_gamma(s, r, xc="lda,vwn", orbs=[0], device=dev)),
+         independent=True)
+    log(f"14f worst |card - cpu|: Sigma(iw) {worst['sigma']:.3e} relative (bar "
+        f"{GW_CPU_REL}), QP {worst['qp']:.3e} Ha, Ec {worst['ec']:.3e} Ha (bar {GW_CPU_QP})")
+    return worst
+
+
 def main():
     try:
         import torch
@@ -2548,10 +3097,35 @@ def main():
             f"{peak_gb(torch, 'cuda'):.2f} GB")
         torch.cuda.empty_cache()
     k2_slice10 = robust_k_cross.launches
-    del main_path, ksys, krks, krhf
     torch.cuda.empty_cache()
     log(f"phase 13: {time.perf_counter() - t13:.1f} s, K2 launches {k2_slice10}")
     forces = slice10["13a"]
+    t14 = time.perf_counter()
+    collocate.launches = 0
+    robust_k_cross.launches = 0
+    slice11 = {}
+    for name, fn, args in (
+            ("14a", phase_gw_main, (main_path,)),
+            ("14b", phase_gw_exact_main, (main_path, lambda: slice11["14a"])),
+            ("14c", phase_gw_cd_main, (main_path, lambda: slice11["14a"],
+                                       lambda: slice11["14b"])),
+            ("14d", phase_gw_k, (main_path, ksys, krks, slice10["13b"]["lda"])),
+            ("14e", phase_eph, ()),
+            ("14f", phase_small_slice11, ())):
+        if name == "14d":
+            del slice11["14a"]["Lmo"]
+        reset_peak(torch, "cuda")
+        t0 = time.perf_counter()
+        slice11[name] = fn(torch, *(a() if callable(a) else a for a in args))
+        log(f"{name}: {time.perf_counter() - t0:.1f} s, peak device memory "
+            f"{peak_gb(torch, 'cuda'):.2f} GB")
+        torch.cuda.empty_cache()
+    slice11_launches = {"ao_collocate": collocate.launches,
+                        "robust_k_cross": robust_k_cross.launches}
+    del main_path, ksys, krks, krhf, slice10
+    torch.cuda.empty_cache()
+    log(f"phase 14: {time.perf_counter() - t14:.1f} s, launches {slice11_launches}")
+    check(slice11_launches["ao_collocate"] > 0, "phase 14: K1 was not launched")
 
     kernels = [
         dict(name="ao_collocate", route="cuda",
@@ -2567,6 +3141,8 @@ def main():
              slice8=dict(launches=slice8["ao_collocate"]),
              slice9=dict(launches=dict(becke=becke["launches"]["ao_collocate"],
                                        gdf=gdf["launches"])),
+             slice11=dict(launches=slice11_launches["ao_collocate"],
+                          gdf_build=slice11["14a"]["k1"]),
              slice10=dict(launches=forces["launches"], max_abs_err=forces["err"],
                           ms=forces["k1"]["ms"], plain_ms=forces["k1"]["plain_ms"],
                           bound_ms=forces["k1"]["bound_ms"],
@@ -2596,7 +3172,8 @@ def main():
                              triplet=spin["triplet"]),
              slice8=dict(launches=slice8["robust_k_cross"]),
              slice9=dict(launches=dict(becke=becke["launches"]["robust_k_cross"])),
-             slice10=dict(launches=k2_slice10)),
+             slice10=dict(launches=k2_slice10),
+             slice11=dict(launches=slice11_launches["robust_k_cross"])),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

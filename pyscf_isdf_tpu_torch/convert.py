@@ -133,3 +133,19 @@ def ibz_from_numpy(info) -> IBZInfo:
                    bz2ibz=np.array(info.bz2ibz, dtype=np.int64),
                    op_idx=np.array(info.op_idx, dtype=np.int64),
                    tr=np.array(info.tr, dtype=bool), ops=ops)
+
+
+def _nested(a, dtype, device):
+    if isinstance(a, (list, tuple)):
+        return [_nested(x, dtype, device) for x in a]
+    return _tensor(a, dtype, device)
+
+
+def lmo_from_numpy(Lmo, device=None):
+    """A GW input's MO-basis fit tensor on ``device``: one (naux, nmo, nmo)
+    float64 array at Gamma, or the nested Lmo[k1][k2] complex arrays of
+    the k-point tensors (as lists of tensors)."""
+    device = resolve_device(device)
+    if isinstance(Lmo, (list, tuple)):
+        return _nested(Lmo, torch.complex128, device)
+    return _tensor(Lmo, torch.float64, device)

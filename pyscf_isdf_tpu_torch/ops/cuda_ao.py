@@ -368,30 +368,53 @@ def collocate_plain(l, counts, nprim, cuts, centers, exps, coeffs, coordsT,
     ns, nb, P, K, imax, NB = _shapes(l, counts, nprim, cuts, centers, exps,
                                      coeffs, coordsT, dest, imgs)
     M = 2 * l + 1
-    kw = dict(dtype=coordsT.dtype, device=coordsT.device)
-    jm = max(1, int(counts.max())) if counts.numel() else 1   # live slots
-    prim = torch.arange(P, device=coordsT.device)
-    out = torch.zeros((ns * K * M, ng), **kw)
+    dev = coordsT.device
+    prim = torch.arange(P, device=dev)
+    km = torch.arange(K * M, device=dev)
+    out = torch.zeros((ns * K * M, ng), dtype=coordsT.dtype, device=dev)
     # only the slots that land on the grid (a partial brick's others are
-    # padding), in blocks of about chunk_elems (slot, image, primitive) terms
+    # padding); shells in groups of like image counts (a diffuse shell
+    # lists many more images than a tight one), each group in blocks of
+    # about chunk_elems (slot, image, primitive) terms
     slots_all = torch.nonzero(dest >= 0).squeeze(1)
-    pc = max(1, chunk_elems // (ns * jm * max(P, M, K)))
-    for i0 in range(0, slots_all.numel(), pc):
-        slots = slots_all[i0:i0 + pc]
-        brick = slots // NB
-        xyz = coordsT[:, slots]                                    # (3, n)
-        T = imgs[:, brick, :, :jm]                                 # (ns, n, 3, jm)
-        d = torch.stack([(xyz[c][None, :, None] - centers[:, c, None, None])
-                         - T[:, :, c] for c in range(3)], -1)      # (ns, n, jm, 3)
-        r2 = (d * d).sum(-1)                                       # (ns, n, jm)
-        live = prim < nprim[:, brick, :jm, None]                   # (ns, n, jm, P)
-        arg = -exps[:, None, None, :] * r2[..., None]
-        g = torch.exp(arg) * (live & (arg >= cuts[:, None, None, None]))
-        rad = torch.einsum("snjp,spk->snjk", g, coeffs)
-        ang = solid_harmonics(l, d, torch)                         # (ns, n, jm, M)
-        out[:, dest[slots].long()] = torch.einsum(
-            "snjk,snjm->skmn", rad, ang).reshape(ns * K * M, -1)
+    for sub in _shell_groups(counts):
+        jm = max(1, int(counts[sub].max()))                    # live slots
+        cen, ex, cut, np_, im, co = (a[sub] for a in (centers, exps, cuts, nprim, imgs,
+                                                       coeffs))
+        rows = (sub[:, None] * (K * M) + km).reshape(-1, 1)
+        pc = max(1, chunk_elems // (len(sub) * jm * max(P, M, K)))
+        for i0 in range(0, slots_all.numel(), pc):
+            slots = slots_all[i0:i0 + pc]
+            brick = slots // NB
+            xyz = coordsT[:, slots]                                # (3, n)
+            T = im[:, brick, :, :jm]                               # (s, n, 3, jm)
+            d = torch.stack([(xyz[c][None, :, None] - cen[:, c, None, None])
+                             - T[:, :, c] for c in range(3)], -1)  # (s, n, jm, 3)
+            r2 = (d * d).sum(-1)                                   # (s, n, jm)
+            live = prim < np_[:, brick, :jm, None]                 # (s, n, jm, P)
+            arg = -ex[:, None, None, :] * r2[..., None]
+            g = torch.exp(arg) * (live & (arg >= cut[:, None, None, None]))
+            rad = torch.einsum("snjp,spk->snjk", g, co)
+            ang = solid_harmonics(l, d, torch)                     # (s, n, jm, M)
+            out[rows, dest[slots].long()[None, :]] = torch.einsum(
+                "snjk,snjm->skmn", rad, ang).reshape(len(sub) * K * M, -1)
     return out
+
+
+def _shell_groups(counts):
+    """Shell indices in groups, by falling image count, each group's
+    counts above half its largest: (ns, nb) counts -> list of tensors."""
+    if counts.numel() == 0:
+        return []
+    top = counts.max(1).values
+    order = torch.argsort(top, descending=True, stable=True)
+    groups, start = [], 0
+    for i in range(1, len(order) + 1):
+        lead = int(top[order[start]])
+        if i == len(order) or (lead > 0 and 2 * int(top[order[i]]) <= lead):
+            groups.append(order[start:i])
+            start = i
+    return groups
 
 
 def collocate(l, counts, nprim, cuts, centers, exps, coeffs, coordsT, dest,

@@ -169,13 +169,18 @@ def get_vpploc(cell, aoR: torch.Tensor, mesh=None, Gv=None):
     return _potential_matrix(aoR, vpplocR), vpplocR
 
 
-def get_vppnl(cell, mesh=None, kpt=None, device=None) -> torch.Tensor:
+def get_vppnl(cell, mesh=None, kpt=None, device=None, pp_coords=None) -> torch.Tensor:
     """Nonlocal separable PP matrix: sum_a,l,ij <ao|p_i^lm> h_ij <p_j^lm|ao>.
 
     Uses the analytic (alias-free) AO Fourier transform, matching the
     reference's FFTDF.get_pp (pyscf/pbc/df/fft.py:87-145); overall scale
     1/vol with aokG carrying (1/vol)^(1/2). Real at Gamma, complex128 at a
     k-point ``kpt`` (projectors at k+G, structure factor at G).
+
+    ``pp_coords`` (natm, 3) optionally places the projectors at other
+    centres than the cell's atoms (the AOs still follow ``cell.coords``):
+    the matrix of the frozen central projectors in a displaced basis that
+    the electron-phonon correction needs (eph/eph_fd.py).
     """
     from pyscf_isdf_tpu_torch.ops.ft_ao import ft_ao
 
@@ -187,7 +192,8 @@ def get_vppnl(cell, mesh=None, kpt=None, device=None) -> torch.Tensor:
     Gk = Gv if kpt is None else Gv + torch.as_tensor(kpt, dtype=Gv.dtype,
                                                      device=device)
     G_rad = torch.linalg.norm(Gk, dim=1)
-    coords = torch.as_tensor(cell.coords, device=device)
+    coords = torch.as_tensor(cell.coords if pp_coords is None else pp_coords,
+                             dtype=torch.float64, device=device)
     nao = cell.nao
     vppnl = torch.zeros((nao, nao), dtype=torch.complex128, device=device)
     for ia in range(cell.natm):

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_thread  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 
 from pyscf_isdf_tpu import build_cell as ref_build_cell  # noqa: E402

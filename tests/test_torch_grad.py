@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 
 from pyscf_isdf_tpu import build_cell as ref_build_cell  # noqa: E402
@@ -55,16 +56,6 @@ from pyscf_isdf_tpu_torch.scf import (  # noqa: E402
 GRAD_TOL = 1e-9
 E_TOL = 1e-10
 L = 6.0
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for torch: these tests run many small CPU
-    kernels, and parallel test workers share the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @contextlib.contextmanager

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_thread  # noqa: E402,F401
 
 from pyscf_isdf_tpu.models import diamond_primitive as ref_diamond  # noqa: E402
 from pyscf_isdf_tpu.ops import coulomb as ref_coulomb  # noqa: E402
@@ -80,15 +81,17 @@ K_MODULES = ("kpts_helper", "k2gamma", "convert", "scf.khf", "scf.occupations",
              "ops.md_int", "ops.md_int_k", "df.gdf", "df.aftdf", "df.aegdf",
              "scf.x2c", "basis.nwchem", "grad", "grad.rhf", "grad.uhf", "grad.khf",
              "grad.kuhf", "grad.stress", "grad.kstress", "grad.optimize", "tdscf",
-             "tdscf.rks", "tdscf.response", "tdscf.ktda")
+             "tdscf.rks", "tdscf.response", "tdscf.ktda", "gw", "gw.rgw",
+             "gw.gw_exact", "gw.krgw", "gw.ugw", "gw.gw_cd", "eph", "eph.eph_fd")
 
 
 def test_port_imports_no_jax():
     """Importing every port module, the k-point ones, the graph drivers, the
     meta-GGAs, the open-shell drivers, the IBZ SCF, MP2, the remaining
     mean-field drivers and bands, and the Becke grids, PME, the
-    all-electron integrals, GDF, AFTDF, aegdf and X2C, and the forces,
-    stress and linear-response packages (grad, tdscf) named, leaves jax and
+    all-electron integrals, GDF, AFTDF, aegdf and X2C, the forces, stress
+    and linear-response packages (grad, tdscf), and GW, RPA and the
+    electron-phonon coupling (gw, eph) named, leaves jax and
     the JAX package out of sys.modules (a subprocess: this test process has
     imported jax)."""
     code = (

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_thread  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 
 from pyscf_isdf_tpu import lattice as ref_lattice  # noqa: E402

@@ -29,6 +29,7 @@ import pytest
 import scipy.linalg as sla
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_thread  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 
 from pyscf_isdf_tpu.df import isdf_q as ref_isdf_q, isdf_sym as ref_isdf_sym  # noqa: E402

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 
 from pyscf_isdf_tpu import lattice as ref_lattice  # noqa: E402

@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_thread  # noqa: E402,F401
+import jax  # noqa: E402
 
 from pyscf_isdf_tpu import build_cell as ref_build_cell  # noqa: E402
 from pyscf_isdf_tpu import lattice as ref_lattice  # noqa: E402
@@ -175,7 +177,19 @@ def test_scf(name, kw):
         assert abs(out["e_tot"] - SLAB_GOLDEN) < 1e-7
 
 
-def test_vcut_at_k_points():
+@pytest.fixture
+def ref_isdf_k_compiled_once(monkeypatch):
+    """The reference's k-point ISDF exchange jits a new closure on every
+    call (ROADMAP queue 3 (h)), so every SCF cycle recompiles it: here the
+    reference's own get_k_kpts under one outer jit (its ISDFK is a pytree
+    with qmap static), compiled once for the test."""
+    from pyscf_isdf_tpu.df import isdf_k as ref_isdf_k
+
+    monkeypatch.setattr(ref_isdf_k, "get_k_kpts",
+                        jax.jit(ref_isdf_k.get_k_kpts, static_argnames=("k1_idx",)))
+
+
+def test_vcut_at_k_points(ref_isdf_k_compiled_once):
     """'vcut_sph' in the k-point drivers: KRHF (isdf) against the
     reference, and the closed-shell KUHF equal to it on both engines.
     Queue 3 (n): the reference's kuhf_kernel takes 'vcut_*' into its isdf

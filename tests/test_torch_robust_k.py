@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_thread  # noqa: E402,F401
 
 from pyscf_isdf_tpu_torch.ops import cuda_robust_k as rk  # noqa: E402
 

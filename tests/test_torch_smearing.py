@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_thread  # noqa: E402,F401
 
 from pyscf_isdf_tpu.scf import occupations as ref_occ  # noqa: E402
 

@@ -10,8 +10,8 @@ Bars: the response products on a seeded x 1e-12 relative, dense TDA and
 TDDFT energies 1e-10 Ha, Davidson 1e-8 Ha, oscillator strengths 1e-8.
 
 The reference's pointwise LDA kernels (a vmapped ``jax.hessian`` per
-point, Gamma and k-point) run under one ``jax.jit`` a module at XLA's
-backend optimization level 0; its
+point, Gamma and k-point) and its spin functionals run under one
+``jax.jit`` a module at XLA's backend optimization level 0; its
 dense GGA triplet kernel takes one eager JVP per (j, b) pair (about 30 s
 here), so the port's dense GGA triplet is held to the port's Davidson
 and to the reference's matrix-free product instead.
@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -31,6 +32,7 @@ from pyscf_isdf_tpu.models import diamond_primitive as ref_diamond  # noqa: E402
 from pyscf_isdf_tpu.scf import build_scf_system as ref_build  # noqa: E402
 from pyscf_isdf_tpu.scf.khf import build_kscf_system as ref_kbuild  # noqa: E402
 from pyscf_isdf_tpu.tdscf import ktda as ref_ktda  # noqa: E402
+from pyscf_isdf_tpu.ops import xc as ref_xc  # noqa: E402
 from pyscf_isdf_tpu.tdscf import response as ref_response, rks as ref_rks  # noqa: E402
 
 from pyscf_isdf_tpu_torch import build_cell, lattice  # noqa: E402
@@ -89,16 +91,6 @@ def kpoint():
             states)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for torch: these tests run many small CPU
-    kernels, and parallel test workers share the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 # the reference's pointwise LDA kernels (vmapped hessians, eager there),
 # each under one jit shared by every test of the module
 _O0 = {"xla_backend_optimization_level": 0}
@@ -106,10 +98,22 @@ _REF_FXC = jax.jit(ref_rks._fxc_lda, static_argnums=0, compiler_options=_O0)
 _REF_FXC_K = jax.jit(ref_ktda._fxc_lda_channels, static_argnums=0, compiler_options=_O0)
 
 
+_REF_SPIN_XC = jax.jit(ref_xc.XCSpec.exc_vxc_spin, static_argnums=0, compiler_options=_O0)
+
+
 @pytest.fixture(autouse=True)
 def ref_fxc_jitted(monkeypatch):
     monkeypatch.setattr(ref_rks, "_fxc_lda", _REF_FXC)
     monkeypatch.setattr(ref_ktda, "_fxc_lda_channels", _REF_FXC_K)
+    # the reference's spin functionals (its k-point GGA response) run
+    # eagerly otherwise: one jit a functional for the module
+    plain = ref_xc.XCSpec.exc_vxc_spin
+
+    def spin(self, *a):
+        if any(isinstance(x, jax.core.Tracer) for x in a):
+            return plain(self, *a)          # inside the reference's own trace
+        return _REF_SPIN_XC(self, *a)
+    monkeypatch.setattr(ref_xc.XCSpec, "exc_vxc_spin", spin)
 
 
 def _xc(name):
