@@ -198,11 +198,36 @@ run from the root of a checkout. Phases, each of which fails the script:
      displaced step's V - B and force (1e-10); (f) the GW family on the
      reference tests' small cells card against CPU (Sigma(iw) GW_CPU_REL,
      QP and correlation energies GW_CPU_QP plus the continuation's
-     conditioning).
+     conditioning);
+ 15. coupled cluster, K1's and K2's launches counted from 0 over the
+     phase, each sub-phase's seconds and peak device memory printed: (a)
+     the full width, diamond primitive gth-dzvp at its default mesh with
+     a Gamma-centred 2x2x2 k-mesh, KRHF (FFTDF, 'ewald', conv_tol 1e-10)
+     and krccsd(conv_tol=1e-9): converged, e_corr negative and finite,
+     its start energy (t1 = 0, t2 = MP2) against kmp2_energy on the same
+     state (CC_MP2_BAR a cell); the iteration count, each iteration's
+     CUDA-event ms, the ERI build's stages (ao2mo_7d, symmetrize,
+     classes), the peak memory and the largest gathered operand; (b) at
+     2x2x2 gth-szv (12^3) krccsd, kccsd_blocked and the composite kccsd
+     against each other (CC_TIER_BAR a cell) and Gamma ccsd on the 2x2x2
+     supercell (24^3); (c) at 2x1x1 kccsd(with_t=True) against Gamma
+     ccsd(with_t=True) on the (24,12,12) supercell, and eom_ip_ea_energies
+     IP and EA (nroots 2) on both (CC_IPEA_BAR). At 12^3 the k-point and
+     supercell SCF, e_corr and E(T) part by more than the H2 chain's bars
+     (CC_SCF_BAR, CC_CORR_BAR, CC_T_BAR) in the JAX package too, so (b) and
+     (c) hold the card's gaps a cell to the reference's (CC_REF_GAP within
+     CC_GAP_BAR, tools/cc_supercell_gap.py);
+     (d) card against CPU on the reference tests' small cells, one CPU
+     SCF state per cell on both devices (CC_CPU_BAR): FCI, CISD, CCSD(T),
+     THC-CCSD, UCCSD, the dense, Arnoldi and shift-invert EOM-EE, EOM-IP
+     and EA with pole strengths, the CCSD and FCI densities, IP/EA-ADC(2),
+     KCCSD(T), the blocked KCCSD (uniform and padded), KRCCSD, and KUCCSD
+     (composite and blocked).
 
 It prints the kernels' JSON summary and, as its last line,
 {"ok": true, "device": {...}}. It imports nothing of JAX.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -2973,6 +2998,411 @@ def phase_small_slice11(torch, devs=("cuda", "cpu")):
     return worst
 
 
+# phase 15: coupled cluster. The closed-shell spatial KRCCSD carries the
+# full width (diamond 2x2x2 gth-dzvp); the spin-orbital blocked and the
+# composite tiers are held against it at gth-szv, where their classes fit
+# (at gth-dzvp the spin-orbital vvvv class alone is 30.7 GB).
+CC_MP2_BAR = 1e-8         # KRCCSD's start energy against kmp2_energy, a cell
+CC_TIER_BAR = 1e-9        # the three tiers, a cell (tests/test_kccsd_blocked.py:126)
+CC_SCF_BAR = 5e-8         # k-point SCF against its supercell, a cell (tests/test_kccsd.py:44)
+CC_CORR_BAR = 5e-7        # e_corr against the supercell's, a cell (tests/test_kccsd.py:45)
+CC_T_BAR = 1e-8           # E(T) against the supercell's, a cell (tests/test_kccsd.py:46)
+CC_IPEA_BAR = 5e-5        # EOM-IP/EA against the supercell's (tests/test_kccsd.py:267)
+CC_CPU_BAR = 1e-10        # card against CPU on one CPU SCF state
+# At 12^3 the KRHF/KCCSD of the diamond primitive cell and the Gamma
+# RHF/CCSD of its supercell part by more than CC_SCF_BAR, CC_CORR_BAR and
+# CC_T_BAR (the H2 chain's bars) in the JAX package as in the port: the gaps
+# a cell of `python3 tools/cc_supercell_gap.py --package reference` on the
+# CPU (--with-t at 2,1,1). 15b and 15c hold the card's gaps to these within
+# CC_GAP_BAR (two SCFs of one system part by about 1e-9 Ha).
+CC_REF_GAP = {(2, 1, 1): {"scf": 6.539496e-06, "corr": 2.017463e-06, "t": 1.991421e-08},
+              (2, 2, 2): {"scf": 1.599138e-05, "corr": 3.530113e-06}}
+CC_GAP_BAR = {"scf": 1e-8, "corr": 1e-8, "t": 1e-9}
+
+
+class EventTimer:
+    """Stage timer on CUDA events, with no synchronisation inside a stage:
+    ``with timer("name"):`` records an event before and after; ``ms(name)``
+    reads every entry's elapsed milliseconds once the device is done."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.events = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        e0 = self.torch.cuda.Event(enable_timing=True)
+        e1 = self.torch.cuda.Event(enable_timing=True)
+        e0.record()
+        try:
+            yield
+        finally:
+            e1.record()
+            self.events.setdefault(name, []).append((e0, e1))
+
+    def ms(self, name):
+        self.torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events.get(name, [])]
+
+
+def stage_timer(torch, dev):
+    """An EventTimer on the card, a StageTimer elsewhere."""
+    from pyscf_isdf_tpu_torch.utils.timing import StageTimer
+
+    return EventTimer(torch) if torch.device(dev).type == "cuda" else StageTimer(dev)
+
+
+def stage_ms(timer, name):
+    if isinstance(timer, EventTimer):
+        return timer.ms(name)
+    return [1e3 * s for s in timer.seconds.get(name, [])]
+
+
+def k_krhf(torch, cell, nkm, dev, conv_tol):
+    """A Gamma-centred k-system and its KRHF (FFTDF, 'ewald')."""
+    from pyscf_isdf_tpu_torch import lattice
+    from pyscf_isdf_tpu_torch.scf import build_kscf_system, kscf_kernel
+
+    kpts = lattice.make_kpts(cell.a, list(nkm))
+    ksys = build_kscf_system(cell, kpts, device=dev)
+    kres = kscf_kernel(ksys, xc=None, exxdiv="ewald", conv_tol=conv_tol, device=dev)
+    check(kres["converged"], f"KRHF {nkm} on {dev} did not converge")
+    return ksys, kres
+
+
+def gamma_rhf(torch, cell, dev, conv_tol):
+    """A Gamma system (K1 collocates its AOs on the card) and its RHF."""
+    from pyscf_isdf_tpu_torch.scf import build_scf_system, scf_kernel
+
+    system = build_scf_system(cell, device=dev)
+    res = scf_kernel(system, xc=None, exxdiv="ewald", conv_tol=conv_tol)
+    check(res["converged"], f"RHF on {dev} did not converge")
+    return system, res
+
+
+def phase_krccsd_main(torch, dev="cuda", basis="gth-dzvp", nkm=(2, 2, 2)):
+    """15a: closed-shell KRCCSD at the full width: the diamond primitive
+    cell at its default mesh, Gamma-centred 2x2x2 k-mesh, KRHF (FFTDF,
+    'ewald', conv_tol 1e-10), krccsd(conv_tol=1e-9): converged, e_corr
+    negative and finite, its start energy against kmp2_energy (CC_MP2_BAR
+    a cell); the iteration count, the CUDA-event ms of each iteration, the
+    ERI build's stages, the peak memory and the largest gathered operand."""
+    from pyscf_isdf_tpu_torch.cc.kccsd_blocked import GATHER_BYTES, KAlgebra, gathered_bytes
+    from pyscf_isdf_tpu_torch.cc.krccsd import krccsd
+    from pyscf_isdf_tpu_torch.models import diamond_primitive
+    from pyscf_isdf_tpu_torch.mp.kmp2 import kmp2_energy
+
+    cell = diamond_primitive(basis=basis)
+    (ksys, kres), t_scf = timed(torch, lambda: k_krhf(torch, cell, nkm, dev, 1e-10), dev)
+    nk = len(ksys.kpts)
+    nocc = cell.nelectron // 2
+    nmo = kres["mo_coeff"][0].shape[1]
+    log(f"15a: diamond primitive {basis}, mesh {tuple(cell.mesh)}, nao {cell.nao}, "
+        f"k-mesh {nkm} (nk {nk}); KRHF {kres['e_tot']:.10f} Ha in {kres['niter']} "
+        f"iterations, {t_scf:.2f} s with the k-system's build")
+    timer = stage_timer(torch, dev)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out, t_cc = timed(torch, lambda: krccsd(ksys, kres, conv_tol=1e-9, device=dev,
+                                            timer=timer), dev)
+    peak = peak_gb(torch, dev)
+    e = out["e_corr"]
+    check(out["converged"], f"15a: KRCCSD did not converge in {out['niter']} iterations")
+    check(math.isfinite(e) and e < 0, f"15a: KRCCSD e_corr {e}")
+    e_kmp2, t_mp2 = timed(torch, lambda: kmp2_energy(ksys, kres, device=dev), dev)
+    d_mp2 = abs(out["e_mp2"] - e_kmp2)
+    it_ms = stage_ms(timer, "iteration")
+    stages = {k: sum(stage_ms(timer, k)) / 1e3 for k in ("ao2mo_7d", "symmetrize", "classes")}
+    no, nv = nocc, nmo - nocc
+    meta = dict(dtype=torch.complex128, device="meta")
+    gb = gathered_bytes("ijef,abef->ijab",
+                        torch.empty((nk, nk, nk, no, no, nv, nv), **meta),
+                        torch.empty((nk, nk, nk, nv, nv, nv, nv), **meta),
+                        KAlgebra(cell.a, ksys.kpts))
+    log(f"15a KRCCSD (nmo {nmo}, nocc {no}, nvir {nv} a k-point): e_corr {e:.12f} Ha a "
+        f"cell, e_tot {out['e_tot']:.10f}, {out['niter']} iterations, {t_cc:.2f} s; "
+        f"iteration (CUDA events) median {statistics.median(it_ms):.1f} ms, min "
+        f"{min(it_ms):.1f}, max {max(it_ms):.1f}; ERI build ao2mo_7d "
+        f"{stages['ao2mo_7d']:.2f} s, symmetrize {stages['symmetrize']:.2f} s, classes "
+        f"{stages['classes']:.2f} s; peak device memory {peak:.2f} GB; largest gathered "
+        f"operand (Wabef of 'ijef,abef->ijab', one spin group) {gb / 1e9:.2f} GB, taken in "
+        f"{math.ceil(gb / GATHER_BYTES)} chunks of at most {GATHER_BYTES / 1e9:.2f} GB")
+    log(f"15a start energy (t1 = 0, t2 = MP2) {out['e_mp2']:.12f} against kmp2_energy "
+        f"{e_kmp2:.12f} ({t_mp2:.2f} s): |diff| {d_mp2:.3e} Ha a cell (bar {CC_MP2_BAR})")
+    check(d_mp2 < CC_MP2_BAR, "15a: KRCCSD's start energy != KMP2")
+    return dict(e_corr=e, niter=out["niter"], it_ms=it_ms, stages=stages, peak=peak,
+                gathered=gb, d_mp2=d_mp2, seconds=t_cc)
+
+
+def phase_cc_tiers(torch, dev="cuda", nkm=(2, 2, 2)):
+    """15b: at diamond 2x2x2 gth-szv (12^3): krccsd, kccsd_blocked and the
+    composite kccsd on one KRHF (CC_TIER_BAR a cell), and Gamma ccsd on
+    the 2x2x2 supercell (24^3), the gaps a cell held to the reference's
+    (hold_gaps); ``nkm`` sets the k-mesh and the supercell with it."""
+    from pyscf_isdf_tpu_torch.cc.gccsd import ccsd
+    from pyscf_isdf_tpu_torch.cc.kccsd import kccsd
+    from pyscf_isdf_tpu_torch.cc.kccsd_blocked import kccsd_blocked
+    from pyscf_isdf_tpu_torch.cc.krccsd import krccsd
+    from pyscf_isdf_tpu_torch.models import diamond_primitive, diamond_supercell
+
+    ksys, kres = k_krhf(torch, diamond_primitive(mesh=(12,) * 3), nkm, dev, 1e-11)
+    nk = len(ksys.kpts)
+    outs = {}
+    for name, fn in (("krccsd", krccsd), ("kccsd_blocked", kccsd_blocked),
+                     ("kccsd", kccsd)):
+        reset_peak(torch, dev)
+        out, secs = timed(torch, lambda: fn(ksys, kres, conv_tol=1e-9, device=dev), dev)
+        check(out["converged"], f"15b: {name} did not converge")
+        outs[name] = out
+        log(f"15b {name}: e_corr {out['e_corr']:.12f} Ha a cell, {out['niter']} "
+            f"iterations, {secs:.2f} s, peak {peak_gb(torch, dev):.2f} GB")
+    ref = outs["kccsd"]["e_corr"]
+    d_tier = max(abs(outs[k]["e_corr"] - ref) for k in ("krccsd", "kccsd_blocked"))
+    del ksys, outs
+    reset_peak(torch, dev)
+    sc = diamond_supercell(nrep=nkm, mesh=tuple(12 * n for n in nkm))
+    (ssys, sres), t_scf = timed(torch, lambda: gamma_rhf(torch, sc, dev, 1e-11), dev)
+    sout, secs = timed(torch, lambda: ccsd(ssys, sres, conv_tol=1e-9, device=dev), dev)
+    check(sout["converged"], "15b: the supercell's CCSD did not converge")
+    log(f"15b Gamma {nkm} supercell (nso {2 * ssys.aoR.shape[1]}): SCF {t_scf:.2f} s, "
+        f"CCSD {sout['niter']} iterations {secs:.2f} s, peak {peak_gb(torch, dev):.2f} GB; "
+        f"|tiers - composite| {d_tier:.3e} (bar {CC_TIER_BAR})")
+    check(d_tier < CC_TIER_BAR, "15b: the KCCSD tiers disagree")
+    gaps = hold_gaps("15b", tuple(nkm), {"scf": kres["e_tot"] - sres["e_tot"] / nk,
+                                         "corr": ref - sout["e_corr"] / nk})
+    return dict(d_tier=d_tier, gaps=gaps)
+
+
+def hold_gaps(label, nkm, gaps):
+    """Hold the k-point against Gamma-supercell gaps a cell to the JAX
+    package's (CC_REF_GAP, CC_GAP_BAR)."""
+    bars = {"scf": CC_SCF_BAR, "corr": CC_CORR_BAR, "t": CC_T_BAR}
+    for key, gap in gaps.items():
+        r = CC_REF_GAP[nkm][key]
+        log(f"{label} {nkm} gap {key} {gap:.9e} a cell (the H2 chain's bar {bars[key]}); "
+            f"the reference's {r:.6e}, |diff| {abs(gap - r):.3e} (bar {CC_GAP_BAR[key]})")
+        check(abs(gap - r) < CC_GAP_BAR[key],
+              f"{label}: the k-point against supercell gap {key} != the reference's")
+    return gaps
+
+
+def gamma_so_integrals(torch, system, res):
+    """(f_so, eri_so) of a Gamma RHF state (the orbital energies on the
+    diagonal)."""
+    from pyscf_isdf_tpu_torch.cc import gccsd
+
+    mo_e = torch.as_tensor(res["mo_energy"], device=system.aoR.device)
+    mo_c = torch.as_tensor(res["mo_coeff"], device=system.aoR.device)
+    _, eri = gccsd.spinorb_from_spatial(torch.diag(mo_e), gccsd._mo_eri_gamma(system, mo_c))
+    return torch.diag(mo_e.repeat_interleave(2)), eri
+
+
+def phase_cc_211(torch, dev="cuda"):
+    """15c: complex orientations and (T) at 2x1x1 (tests/test_kccsd.py's
+    diamond cells): kccsd(with_t=True) against Gamma ccsd(with_t=True) on
+    the (24,12,12) supercell, the SCF, e_corr and E(T) gaps a cell held to
+    the reference's (hold_gaps), then eom_ip_ea_energies IP and EA (nroots
+    2) on both (CC_IPEA_BAR)."""
+    import numpy as np
+
+    from pyscf_isdf_tpu_torch.cc.eom import eom_ip_ea_energies
+    from pyscf_isdf_tpu_torch.cc.gccsd import ccsd
+    from pyscf_isdf_tpu_torch.cc.kccsd import build_composite_eris, kccsd
+    from pyscf_isdf_tpu_torch.models import diamond_primitive, diamond_supercell
+
+    ksys, kres = k_krhf(torch, diamond_primitive(mesh=(12,) * 3), (2, 1, 1), dev, 1e-11)
+    kout, t_k = timed(torch, lambda: kccsd(ksys, kres, with_t=True, conv_tol=1e-10,
+                                           device=dev), dev)
+    f_k, eri_k, no_k = build_composite_eris(ksys, kres, device=dev)
+    imag = float(eri_k.imag.abs().max())
+    ssys, sres = gamma_rhf(torch, diamond_supercell(nrep=(2, 1, 1), mesh=(24, 12, 12)),
+                           dev, 1e-11)
+    sout, t_s = timed(torch, lambda: ccsd(ssys, sres, with_t=True, conv_tol=1e-10,
+                                          device=dev), dev)
+    check(kout["converged"] and sout["converged"], "15c: CCSD did not converge")
+    log(f"15c 2x1x1: KCCSD(T) {t_k:.2f} s, Gamma CCSD(T) {t_s:.2f} s; e_corr "
+        f"{kout['e_corr']:.12f}, E(T) {kout['e_t']:.3e} Ha a cell; max |Im eri_so| {imag:.2e}")
+    check(imag > 1e-4, "15c: the k-point ERIs are not complex: the guard is vacuous")
+    gaps = hold_gaps("15c", (2, 1, 1), {"scf": kres["e_tot"] - sres["e_tot"] / 2,
+                                        "corr": kout["e_corr"] - sout["e_corr"] / 2,
+                                        "t": kout["e_t"] - sout["e_t"] / 2})
+    f_s, eri_s = gamma_so_integrals(torch, ssys, sres)
+    worst = 0.0
+    for sector in ("ip", "ea"):
+        w_k, t_wk = timed(torch, lambda: eom_ip_ea_energies(
+            f_k, eri_k, kout["t1"], kout["t2"], no_k, sector=sector, nroots=2), dev)
+        w_s, t_ws = timed(torch, lambda: eom_ip_ea_energies(
+            f_s, eri_s, sout["t1"], sout["t2"], ssys.nelec, sector=sector, nroots=2), dev)
+        d = float(np.abs(w_k[:2] - w_s[:2]).max())
+        worst = max(worst, d)
+        log(f"15c EOM-{sector.upper()}: k {w_k} ({t_wk:.2f} s), supercell {w_s} "
+            f"({t_ws:.2f} s), |diff| {d:.3e} (bar {CC_IPEA_BAR})")
+        check(d < CC_IPEA_BAR, f"15c: EOM-{sector.upper()} k != supercell")
+    return dict(gaps=gaps, d_ipea=worst)
+
+
+def phase_small_slice12(torch, devs=("cuda", "cpu")):
+    """15d: the slice on the reference tests' small cells, card against CPU
+    (``devs``): one CPU SCF state per cell goes to both devices, whose
+    systems are built each on its device; energies, roots, pole strengths
+    and densities CC_CPU_BAR. ARPACK's start vector is random and the EOM
+    roots come in spin multiplets, so the Arnoldi roots are held to the
+    other device's dense spectrum."""
+    import numpy as np
+
+    from pyscf_isdf_tpu_torch import build_cell, lattice
+    from pyscf_isdf_tpu_torch.cc import adc, density, eom, fci, gccsd
+    from pyscf_isdf_tpu_torch.cc.cisd import cisd
+    from pyscf_isdf_tpu_torch.cc.kccsd import kccsd, kuccsd
+    from pyscf_isdf_tpu_torch.cc.kccsd_blocked import kccsd_blocked, kuccsd_blocked
+    from pyscf_isdf_tpu_torch.cc.krccsd import krccsd
+    from pyscf_isdf_tpu_torch.convert import isdf_from_numpy, scf_result_from_numpy
+    from pyscf_isdf_tpu_torch.device import to_host
+    from pyscf_isdf_tpu_torch.df.isdf import build_isdf
+    from pyscf_isdf_tpu_torch.scf import (build_kscf_system, build_scf_system,
+                                          kscf_kernel, scf_kernel, uhf_kernel)
+
+    worst = {}
+
+    def compare(label, vals):
+        line = []
+        for key, (a, b) in vals.items():
+            d = float(np.abs(np.asarray(a) - np.asarray(b)).max())
+            worst[key] = max(worst.get(key, 0.0), d)
+            line.append(f"{key} {d:.2e}")
+            check(d < CC_CPU_BAR, f"15d {label}: {key} card != CPU ({d:.3e})")
+        log(f"15d {label}: |card - cpu| " + ", ".join(line))
+
+    def gamma_cell(a, atoms, mesh, basis="gth-szv", pseudo="gth-pade", **kw):
+        return build_cell(a, atoms, basis, pseudo=pseudo, mesh=mesh, **kw)
+
+    def gamma_state(cell, kernel=scf_kernel):
+        """The CPU SCF state, and each device's system."""
+        cpu = build_scf_system(cell, device="cpu")
+        res = kernel(cpu, xc=None, exxdiv=None, conv_tol=1e-12)
+        check(res["converged"], "15d: CPU SCF did not converge")
+        systems = [cpu if torch.device(d).type == "cpu" else
+                   build_scf_system(cell, device=d) for d in devs]
+        return systems, [scf_result_from_numpy(res, device=d) for d in devs]
+
+    def so_integrals(system, res):
+        mo = torch.as_tensor(res["mo_coeff"], device=system.aoR.device)
+        h1so, eri = gccsd.spinorb_from_spatial(mo.T @ system.hcore @ mo,
+                                               gccsd._mo_eri_gamma(system, mo))
+        f = torch.diag(torch.as_tensor(res["mo_energy"]).repeat_interleave(2)).to(eri.device)
+        return h1so, eri, f
+
+    L = 7.0
+    a = L * np.eye(3)
+    a[1, 0] = 5.0
+    systems, results = gamma_state(gamma_cell(a, [["Be", (L / 2, L / 2, L / 2)]], [12] * 3,
+                                              pseudo="gth-pade-q2"))
+    v = {}
+    for s, r, d in zip(systems, results, devs):
+        h1so, eri, _ = so_integrals(s, r)
+        out = gccsd.ccsd(s, r, with_t=True, conv_tol=1e-12, device=d)
+        v.setdefault("FCI", []).append(fci.fci_ground_state(h1so, eri, s.nelec)[0])
+        v.setdefault("CISD", []).append(cisd(s, r, device=d)[0])
+        v.setdefault("CCSD", []).append(out["e_corr"])
+        v.setdefault("(T)", []).append(out["e_t"])
+    compare("Be 2e (FCI, CISD, CCSD(T))", v)
+
+    L = 8.0
+    h4 = gamma_cell(np.eye(3) * L, [["H", (L / 2 - 1.8, L / 2, L / 2)],
+                                    ["H", (L / 2 - 0.6, L / 2, L / 2)],
+                                    ["H", (L / 2 + 0.7, L / 2, L / 2)],
+                                    ["H", (L / 2 + 1.9, L / 2, L / 2)]], [14] * 3)
+    systems, results = gamma_state(h4)
+    cpu = systems[devs.index("cpu")] if "cpu" in devs else systems[1]
+    fac = build_isdf(cpu.aoR, cpu.coulG, cpu.mesh, cpu.weight, c=20)
+    t_cpu = gccsd.ccsd(cpu, results[-1], with_t=True, conv_tol=1e-11, device=cpu.aoR.device)
+    amps = (to_host(t_cpu["t1"]), to_host(t_cpu["t2"]))
+    v, spectra = {}, []
+    for s, r, d in zip(systems, results, devs):
+        h1so, eri, f = so_integrals(s, r)
+        no = s.nelec
+        out = gccsd.ccsd(s, r, with_t=True, conv_tol=1e-11, device=d)
+        thc = gccsd.ccsd(s, r, conv_tol=1e-11, device=d, isdf=isdf_from_numpy(
+            to_host(fac.aoRg), to_host(fac.W), to_host(fac.ip_idx), device=d))
+        t1, t2 = (torch.as_tensor(x, device=d) for x in amps)
+        dense = eom.eom_ee_energies(f, eri, t1, t2, no, nroots=6)
+        spectra.append((dense, eom.eom_ee_iterative(f, eri, t1, t2, no, nroots=3),
+                        eom.eom_ee_iterative(f, eri, t1, t2, no, nroots=2,
+                                             target=dense[4] + 1e-3)))
+        for sector in ("ip", "ea"):
+            w, qp, _ = eom.eom_ip_ea_energies(f, eri, t1, t2, no, sector=sector, nroots=3,
+                                              return_weights=True)
+            v.setdefault(f"EOM-{sector.upper()}", []).append(w)
+            v.setdefault(f"{sector.upper()} pole strengths", []).append(qp)
+        ip, ea = adc.adc2_from_scf(s, r, device=d)
+        for key, val in (("CCSD", out["e_corr"]), ("(T)", out["e_t"]),
+                         ("THC-CCSD", thc["e_corr"]), ("CISD", cisd(s, r, device=d)[0]),
+                         ("EOM-EE dense", dense),
+                         ("CCSD rdm1", to_host(density.ccsd_rdm1(h1so, eri, t1, t2, no))),
+                         ("FCI rdm1", to_host(density.fci_rdm1(h1so, eri, no))),
+                         ("IP-ADC(2)", ip), ("EA-ADC(2)", ea)):
+            v.setdefault(key, []).append(val)
+    for j, key in ((1, "EOM-EE Arnoldi"), (2, "EOM-EE shift-invert")):
+        # each device's Arnoldi roots on the other device's dense spectrum
+        v[key] = [max(float(np.abs(spectra[i][j][:, None] - spectra[1 - i][0][None, :])
+                            .min(axis=1).max()) for i in range(2)), 0.0]
+    compare("H4 chain (CCSD(T), THC-CCSD, CISD, EOM, rdm1, ADC(2))", v)
+
+    L = 8.0
+    trip = gamma_cell(np.eye(3) * L, [["H", (L / 2 - 0.8, L / 2, L / 2)],
+                                      ["H", (L / 2 + 0.8, L / 2, L / 2)]], [16] * 3,
+                      basis="gth-dzvp", spin=2)
+    systems, results = gamma_state(trip, kernel=uhf_kernel)
+    compare("H2 triplet (UCCSD)", {"UCCSD": [
+        gccsd.uccsd(s, r, conv_tol=1e-12, device=d)["e_corr"]
+        for s, r, d in zip(systems, results, devs)]})
+
+    def k_state(a, atoms, mesh, nkm):
+        cell = build_cell(a, atoms, "gth-szv", pseudo="gth-pade", mesh=mesh)
+        kpts = lattice.make_kpts(cell.a, nkm)
+        cpu = build_kscf_system(cell, kpts, device="cpu")
+        res = kscf_kernel(cpu, xc=None, exxdiv="ewald", conv_tol=1e-11, device="cpu")
+        check(res["converged"], "15d: CPU KRHF did not converge")
+        return ([cpu if torch.device(d).type == "cpu" else
+                 build_kscf_system(cell, kpts, device=d) for d in devs], res)
+
+    L = 6.0
+    systems, res = k_state(np.array([[2.8, 0, 0], [0, L, 0], [0, 0, L]]),
+                           [["H", (0.0, L / 2, L / 2)], ["H", (1.3, L / 2, L / 2)]],
+                           [8, 16, 16], [3, 1, 1])
+    v = {}
+    for s, d in zip(systems, devs):
+        r = scf_result_from_numpy(res, device=d)
+        comp = kccsd(s, r, with_t=True, conv_tol=1e-10, device=d)
+        v.setdefault("KCCSD", []).append(comp["e_corr"])
+        v.setdefault("KCCSD (T)", []).append(comp["e_t"])
+        v.setdefault("blocked", []).append(kccsd_blocked(s, r, conv_tol=1e-10, device=d)["e_corr"])
+        v.setdefault("KRCCSD", []).append(krccsd(s, r, conv_tol=1e-10, device=d)["e_corr"])
+    compare("H2 chain 3x1x1 (KCCSD(T), blocked, KRCCSD)", v)
+
+    systems, res = k_state(np.diag([4.4, 12.0, 12.0]),
+                           [["H", (0.0, 0.0, 0.0)], ["H", (2.2, 0.0, 0.0)]], (12, 10, 10),
+                           [2, 1, 1])
+    occ = np.array([to_host(o) for o in res["mo_occ"]])
+    mo_e = np.array([to_host(e) for e in res["mo_energy"]])
+    lumo_k = int(np.argmin([mo_e[k][occ[k] < 0.5].min() for k in range(len(occ))]))
+    occ[lumo_k, int(np.where(occ[lumo_k] < 0.5)[0][0])] = 2.0
+    doped = dict(res, mo_occ=occ)
+    res_u = dict(doped, mo_coeff=(res["mo_coeff"],) * 2, mo_energy=(res["mo_energy"],) * 2,
+                 mo_occ=(occ / 2, occ / 2))
+    v = {}
+    for s, d in zip(systems, devs):
+        for key, fn, r in (("blocked uniform", kccsd_blocked, res),
+                           ("blocked padded", kccsd_blocked, doped),
+                           ("KUCCSD composite", kuccsd, res_u),
+                           ("KUCCSD blocked", kuccsd_blocked, res_u)):
+            v.setdefault(key, []).append(
+                fn(s, scf_result_from_numpy(r, device=d), conv_tol=1e-11, device=d)["e_corr"])
+    compare("H2 chain 2x1x1 doped (padding, KUCCSD)", v)
+    log(f"15d worst |card - cpu|: {max(worst.values()):.3e} (bar {CC_CPU_BAR})")
+    return worst
+
+
 def main():
     try:
         import torch
@@ -3126,6 +3556,22 @@ def main():
     torch.cuda.empty_cache()
     log(f"phase 14: {time.perf_counter() - t14:.1f} s, launches {slice11_launches}")
     check(slice11_launches["ao_collocate"] > 0, "phase 14: K1 was not launched")
+    t15 = time.perf_counter()
+    collocate.launches = 0
+    robust_k_cross.launches = 0
+    slice12 = {}
+    for name, fn in (("15a", phase_krccsd_main), ("15b", phase_cc_tiers),
+                     ("15c", phase_cc_211), ("15d", phase_small_slice12)):
+        reset_peak(torch, "cuda")
+        t0 = time.perf_counter()
+        slice12[name] = fn(torch)
+        log(f"{name}: {time.perf_counter() - t0:.1f} s, peak device memory "
+            f"{peak_gb(torch, 'cuda'):.2f} GB")
+        torch.cuda.empty_cache()
+    slice12_launches = {"ao_collocate": collocate.launches,
+                        "robust_k_cross": robust_k_cross.launches}
+    log(f"phase 15: {time.perf_counter() - t15:.1f} s, launches {slice12_launches}")
+    check(slice12_launches["ao_collocate"] > 0, "phase 15: K1 was not launched")
 
     kernels = [
         dict(name="ao_collocate", route="cuda",
@@ -3143,6 +3589,7 @@ def main():
                                        gdf=gdf["launches"])),
              slice11=dict(launches=slice11_launches["ao_collocate"],
                           gdf_build=slice11["14a"]["k1"]),
+             slice12=dict(launches=slice12_launches["ao_collocate"]),
              slice10=dict(launches=forces["launches"], max_abs_err=forces["err"],
                           ms=forces["k1"]["ms"], plain_ms=forces["k1"]["plain_ms"],
                           bound_ms=forces["k1"]["bound_ms"],
@@ -3173,7 +3620,8 @@ def main():
              slice8=dict(launches=slice8["robust_k_cross"]),
              slice9=dict(launches=dict(becke=becke["launches"]["robust_k_cross"])),
              slice10=dict(launches=k2_slice10),
-             slice11=dict(launches=slice11_launches["robust_k_cross"])),
+             slice11=dict(launches=slice11_launches["robust_k_cross"]),
+             slice12=dict(launches=slice12_launches["robust_k_cross"])),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

@@ -149,3 +149,25 @@ def lmo_from_numpy(Lmo, device=None):
     if isinstance(Lmo, (list, tuple)):
         return _nested(Lmo, torch.complex128, device)
     return _tensor(Lmo, torch.float64, device)
+
+
+def scf_result_from_numpy(res, device=None) -> dict:
+    """An SCF result (for example the reference package's, or one moved
+    off another device) with its orbital fields as tensors on ``device``:
+    mo_coeff, mo_energy and mo_occ, nested in the per-spin tuples and
+    per-k lists of the open-shell and k-point results, keep their nesting;
+    e_tot, nelec and every other field pass through."""
+    device = resolve_device(device)
+
+    def t(a):
+        if isinstance(a, tuple):
+            return tuple(t(x) for x in a)
+        if isinstance(a, list):
+            return [t(x) for x in a]
+        if a is None:
+            return None
+        a = a if torch.is_tensor(a) else torch.as_tensor(np.array(a))
+        return a.to(device)
+
+    return {k: (t(v) if k in ("mo_coeff", "mo_energy", "mo_occ") else v)
+            for k, v in res.items()}

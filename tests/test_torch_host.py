@@ -82,7 +82,9 @@ K_MODULES = ("kpts_helper", "k2gamma", "convert", "scf.khf", "scf.occupations",
              "scf.x2c", "basis.nwchem", "grad", "grad.rhf", "grad.uhf", "grad.khf",
              "grad.kuhf", "grad.stress", "grad.kstress", "grad.optimize", "tdscf",
              "tdscf.rks", "tdscf.response", "tdscf.ktda", "gw", "gw.rgw",
-             "gw.gw_exact", "gw.krgw", "gw.ugw", "gw.gw_cd", "eph", "eph.eph_fd")
+             "gw.gw_exact", "gw.krgw", "gw.ugw", "gw.gw_cd", "eph", "eph.eph_fd",
+             "cc", "cc.gccsd", "cc.kccsd_blocked", "cc.krccsd", "cc.kccsd", "cc.fci",
+             "cc.cisd", "cc.eom", "cc.density", "cc.adc")
 
 
 def test_port_imports_no_jax():
@@ -90,8 +92,9 @@ def test_port_imports_no_jax():
     meta-GGAs, the open-shell drivers, the IBZ SCF, MP2, the remaining
     mean-field drivers and bands, and the Becke grids, PME, the
     all-electron integrals, GDF, AFTDF, aegdf and X2C, the forces, stress
-    and linear-response packages (grad, tdscf), and GW, RPA and the
-    electron-phonon coupling (gw, eph) named, leaves jax and
+    and linear-response packages (grad, tdscf), GW, RPA and the
+    electron-phonon coupling (gw, eph), and coupled cluster (cc) named,
+    leaves jax and
     the JAX package out of sys.modules (a subprocess: this test process has
     imported jax)."""
     code = (
