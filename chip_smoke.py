@@ -222,7 +222,31 @@ run from the root of a checkout. Phases, each of which fails the script:
      THC-CCSD, UCCSD, the dense, Arnoldi and shift-invert EOM-EE, EOM-IP
      and EA with pole strengths, the CCSD and FCI densities, IP/EA-ADC(2),
      KCCSD(T), the blocked KCCSD (uniform and padded), KRCCSD, and KUCCSD
-     (composite and blocked).
+     (composite and blocked);
+ 16. the multi-rank layer (parallel/, cc/gccsd.kernel_sharded) and the
+     object API, K1's and K2's launches counted from 0 over the phase, each
+     sub-phase's seconds and peak device memory printed; (a)-(e) on a
+     world-size-1 process group over nccl: (a) build_isdf_sharded at n_ip
+     3456 (c = 16, the blocked path; K1 collocating the rank's slab) with
+     its stage seconds beside phase 5's selection, its K at phase 5's
+     density against the unsplit build from the same points (PAR_REL) and
+     its trace error against FFTDF within 3x phase 5's, aoR[ip_idx] ==
+     aoRg (1e-12), make_scf_step(xc='lda,vwn') on 13b's converged LDA
+     state (a fixed point, PAR_FIX_DM and PAR_FIX_E) and one HF step with
+     the Madelung term against the unsplit step (PAR_REL); (c) on phase
+     7's k-system, build_isdf_k_sharded against build_isdf_k and FFTDF
+     (tests/test_parallel.py:169-196), make_kscf_step LDA on phase 7's
+     KRKS and hybrid on a KRHF isdf c=8 (PAR_FIX_*, PAR_HYB_*); (d)
+     sigma_iw_sharded on 14a's inputs against 14a's self-energy
+     (PAR_SIGMA_REL); (e) kernel_sharded on 15b's Gamma supercell against
+     kernel (PAR_CC_BAR); (b) PAR_WORLD ranks on the one card, each a
+     process with CUDA tensors over gloo: (a)'s build and LDA step, with
+     each rank's stage seconds and collective bytes (PAR_REL against (a));
+     (f) RKS(pbe0).density_fit('isdf-robust', c=16) on the main cell
+     against phase 5 (energy OBJ_E_BAR, iterations, K1 and K2 launches),
+     KRKS(lda) on phase 7's k-system against phase 7, the MP2, CCSD, GW
+     and TDA objects on small cells against their functions, and a
+     bit-exact checkpoint round trip of the card's result.
 
 It prints the kernels' JSON summary and, as its last line,
 {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -3170,7 +3194,7 @@ def phase_cc_tiers(torch, dev="cuda", nkm=(2, 2, 2)):
     check(d_tier < CC_TIER_BAR, "15b: the KCCSD tiers disagree")
     gaps = hold_gaps("15b", tuple(nkm), {"scf": kres["e_tot"] - sres["e_tot"] / nk,
                                          "corr": ref - sout["e_corr"] / nk})
-    return dict(d_tier=d_tier, gaps=gaps)
+    return dict(d_tier=d_tier, gaps=gaps, gamma=(ssys, sres))
 
 
 def hold_gaps(label, nkm, gaps):
@@ -3403,6 +3427,432 @@ def phase_small_slice12(torch, devs=("cuda", "cpu")):
     return worst
 
 
+# ---------------------------------------------------------------- phase 16
+# the multi-rank layer (parallel/, cc/gccsd.kernel_sharded) and the object API
+
+PAR_C = 16                # 16a/16b: n_ip = c * nao = 3456, the blocked path
+PAR_WORLD = 4             # 16b: ranks on the one card
+PAR_REL = 1e-10           # a split result against the unsplit one (relative)
+PAR_FIX_DM, PAR_FIX_E = 1e-6, 1e-9     # tests/test_parallel.py:75-94
+PAR_HYB_DM, PAR_HYB_E = 5e-4, 1e-5     # tests/test_parallel.py:224-255 (c=8 fit)
+PAR_FIT = 1e-8           # Ha: a split fit's trace error against the unsplit fit's
+PAR_SIGMA_REL = 1e-12     # the frequency-split self-energy (tests/test_gw.py:112)
+PAR_CC_BAR = 1e-11        # kernel_sharded against kernel (tests/test_ccsd_sharded.py)
+OBJ_E_BAR = 1e-10         # 16f's objects against the function-level results
+
+
+def rel_err(torch, a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def par_gamma(torch, grp, cell, t, n_ip, timer):
+    """The split Gamma build (K1 collocating the rank's slab) and one LDA step
+    from t['dm_lda']; shared by 16a and 16b's ranks."""
+    from pyscf_isdf_tpu_torch.ops.cuda_ao import make_ao_evaluator
+    from pyscf_isdf_tpu_torch.parallel import distributed_fft as dfft
+    from pyscf_isdf_tpu_torch.parallel.isdf_sharded import build_isdf_sharded
+    from pyscf_isdf_tpu_torch.parallel.mesh import slab_rows
+    from pyscf_isdf_tpu_torch.parallel.scf_step import make_scf_step
+
+    mesh3 = tuple(cell.mesh)
+    rows = slab_rows(mesh3, grp.rank, grp.world)
+    with timer("aoR"):
+        aoR_l = make_ao_evaluator(cell, coords=cell.uniform_grid()[rows],
+                                  device=grp.device)()
+    isdf = build_isdf_sharded(grp, aoR_l, t["coulG"], mesh3, cell.grid_weight, n_ip,
+                              timer=timer)
+    coulG_t_l = dfft.coulG_transposed_layout(t["coulG"], mesh3)[rows]
+    step = make_scf_step(grp, mesh3, cell.grid_weight, cell.nelectron // 2, xc="lda,vwn")
+    with timer("lda_step"):
+        dm, e = step(t["dm_lda"], aoR_l, coulG_t_l, isdf, t["hcore"], t["X"], t["S"])
+    return aoR_l, coulG_t_l, isdf, dm, float(e)
+
+
+def rank_16b(grp, cell, arrays, n_ip):
+    """16b's rank body (module level: parallel.launch's rank processes
+    import it): the split build and LDA step on this rank's slab, results
+    to the host."""
+    import torch
+
+    from pyscf_isdf_tpu_torch.ops.cuda_ao import collocate
+    from pyscf_isdf_tpu_torch.utils.timing import StageTimer
+
+    t = {k: torch.as_tensor(v, device=grp.device) for k, v in arrays.items()}
+    timer = StageTimer(grp.device)
+    collocate.launches = 0
+    reset_peak(torch, grp.device)
+    _, _, isdf, dm, e = par_gamma(torch, grp, cell, t, n_ip, timer)
+    out = dict(ip_idx=isdf.ip_idx.cpu().numpy(), dm=dm.cpu().numpy(), e_elec=e,
+               seconds={k: sum(v) for k, v in timer.seconds.items()},
+               bytes=dict(grp.bytes), k1=collocate.launches,
+               peak_gb=peak_gb(torch, grp.device))
+    if grp.rank == 0:
+        out.update(aoRg=isdf.aoRg.cpu().numpy(), W=isdf.W.cpu().numpy())
+    return out
+
+
+def same_points(torch, aoR, system, isdf, dm, tr_fft):
+    """A split factorization against the unsplit build from its points on the
+    same AO values: (K's relative difference, |tr(D(K_fftdf - K))| of the
+    split and of the unsplit build)."""
+    from pyscf_isdf_tpu_torch.df import isdf as isdf_mod
+
+    aoRg1, W1, _ = isdf_mod._build_from_idx(aoR, isdf.ip_idx, system.coulG, system.mesh,
+                                            system.weight)
+    vk = isdf_mod.get_k(isdf, dm)
+    vk1 = isdf_mod.get_k(isdf_mod.ISDF(aoRg=aoRg1, W=W1, ip_idx=isdf.ip_idx), dm)
+    return (rel_err(torch, vk, vk1), abs(tr_fft - float(torch.einsum("ij,ji->", dm, vk))),
+            abs(tr_fft - float(torch.einsum("ij,ji->", dm, vk1))))
+
+
+def single_step(torch, system, isdf, dm, nocc, madelung):
+    """The unsplit HF step the split one must equal: FFT J, ISDF K with the
+    Madelung term, eigh, the new density (plain port functions)."""
+    from pyscf_isdf_tpu_torch.df import fftdf, isdf as isdf_mod
+
+    vj = fftdf.get_j(system.aoR, dm, system.coulG, system.mesh, system.weight)
+    vk = isdf_mod.get_k(isdf, dm) + madelung * (system.S @ dm @ system.S)
+    F = system.hcore + vj - 0.5 * vk
+    _, u = torch.linalg.eigh(system.X.T @ F @ system.X)
+    C = (system.X @ u)[:, :nocc]
+    e = (torch.einsum("ij,ji->", dm, system.hcore) + 0.5 * torch.einsum("ij,ji->", dm, vj)
+         - 0.25 * torch.einsum("ij,ji->", dm, vk))
+    return 2.0 * C @ C.T, float(e)
+
+
+def phase_par_gamma(torch, grp, main, lda, dev="cuda"):
+    """16a: the split Gamma build at c = 16 on one rank, its exchange against
+    the unsplit build from the same points and against FFTDF, aoR[ip_idx]
+    against aoRg, the LDA step on 13b's converged LDA state and one HF step
+    (Madelung term) against the unsplit step."""
+    from pyscf_isdf_tpu_torch.df import isdf as isdf_mod
+    from pyscf_isdf_tpu_torch.parallel import scf_step
+    from pyscf_isdf_tpu_torch.utils.timing import StageTimer
+
+    system, res = main["system"], main["res"]
+    cell = system.cell
+    n_ip = PAR_C * cell.nao
+    t = dict(coulG=system.coulG, dm_lda=lda["dm"], hcore=system.hcore, X=system.X,
+             S=system.S)
+    timer = StageTimer(dev)
+    aoR_l, coulG_t_l, isdf, dm_new, e_lda = par_gamma(torch, grp, cell, t, n_ip, timer)
+    sec = {k: sum(v) for k, v in timer.seconds.items()}
+    ip = isdf.ip_idx
+    d_rows = float((aoR_l[ip] - isdf.aoRg).abs().max())
+    n_unique = int(torch.unique(ip).numel())
+    dm = res["dm"]
+    vk = isdf_mod.get_k(isdf, dm)
+    rel1, fit_sh, fit_1 = same_points(torch, aoR_l, system, isdf, dm, main["tr_fft"])
+    tr_5 = float(torch.einsum("ij,ji->", dm, isdf_mod.get_k(res["isdf"], dm)))
+    fit_5 = abs(main["tr_fft"] - tr_5)
+    e_ref = lda["e_tot"] - system.e_nuc
+    d_dm = float((dm_new - lda["dm"]).abs().max())
+    d_e = abs(e_lda - e_ref)
+    hf = scf_step.make_scf_step(grp, cell.mesh, cell.grid_weight, cell.nelectron // 2,
+                                xc=None, exxdiv_madelung=float(system.madelung))
+    (dm_h, e_h), s_h = timed(torch, lambda: hf(dm, aoR_l, coulG_t_l, isdf, system.hcore,
+                                               system.X, system.S), dev)
+    dm_h1, e_h1 = single_step(torch, system, isdf, dm, cell.nelectron // 2,
+                              float(system.madelung))
+    d_hdm, d_he = float((dm_h - dm_h1).abs().max()), abs(float(e_h) - e_h1) / abs(e_h1)
+    log(f"16a split build, 1 rank over {grp.backend} (n_ip {n_ip}, blocked): stages "
+        + ", ".join(f"{k}={v:.3f}" for k, v in sec.items())
+        + f" s; phase 5's selection {main['select_s']:.3f} s; collectives "
+        f"{grp.bytes} bytes; unique points {n_unique}")
+    log(f"16a |aoR[ip_idx] - aoRg| {d_rows:.2e} (bar 1e-12); K against the unsplit build "
+        f"from the same points {rel1:.2e} relative (bar {PAR_REL}); |tr(D(K_fftdf - K))| "
+        f"{fit_sh:.3e} Ha, the unsplit build's {fit_1:.3e} (bar +{PAR_FIT}), phase 5's "
+        f"greedy points {fit_5:.3e}")
+    log(f"16a LDA step on 13b's state: |dm' - dm| {d_dm:.2e} (bar {PAR_FIX_DM}), "
+        f"|e_elec - e_ref| {d_e:.2e} Ha (bar {PAR_FIX_E}); HF step with the Madelung "
+        f"term {s_h:.3f} s, against the unsplit step |dm| {d_hdm:.2e}, e {d_he:.2e} "
+        f"relative (bar {PAR_REL})")
+    check(d_rows < 1e-12, "16a: aoR[ip_idx] != aoRg")
+    check(n_unique == n_ip, "16a: the split selection repeated a point")
+    check(rel1 < PAR_REL, "16a: split K != the unsplit build from the same points")
+    check(abs(fit_sh - fit_1) < PAR_FIT, "16a: the split fit != the unsplit fit")
+    check(d_dm < PAR_FIX_DM and d_e < PAR_FIX_E, "16a: the LDA step moved a fixed point")
+    check(d_hdm < PAR_REL and d_he < PAR_REL, "16a: the HF step != the unsplit step")
+    return dict(seconds=sec, dm=dm_new, e_lda=e_lda, isdf=isdf, bytes=dict(grp.bytes),
+                fit=fit_sh, aoR=aoR_l)
+
+
+def phase_par_ranks(torch, main, lda, a16, dev="cuda"):
+    """16b: PAR_WORLD ranks on the one card, each a process with CUDA
+    tensors, over gloo: 16a's build and LDA step."""
+    from pyscf_isdf_tpu_torch.df import isdf as isdf_mod
+    from pyscf_isdf_tpu_torch.parallel import launch
+
+    system, res = main["system"], main["res"]
+    cell = system.cell
+    arrays = {k: v.cpu().numpy() for k, v in dict(
+        coulG=system.coulG, dm_lda=lda["dm"], hcore=system.hcore, X=system.X,
+        S=system.S).items()}
+    outs, secs = timed(torch, lambda: launch(rank_16b, PAR_WORLD, device=dev,
+                                             backend="gloo",
+                                             args=(cell, arrays, PAR_C * cell.nao)), dev)
+    r0 = outs[0]
+    d_ranks = max(max(float(abs(o["dm"] - r0["dm"]).max()), abs(o["e_elec"] - r0["e_elec"]))
+                  for o in outs)
+    d_dm = float((torch.as_tensor(r0["dm"], device=dev) - a16["dm"]).abs().max())
+    d_e = abs(r0["e_elec"] - a16["e_lda"]) / abs(a16["e_lda"])
+    ip = torch.as_tensor(r0["ip_idx"], device=dev)
+    fac = isdf_mod.ISDF(aoRg=torch.as_tensor(r0["aoRg"], device=dev),
+                        W=torch.as_tensor(r0["W"], device=dev), ip_idx=ip)
+    rel1, fit, fit_1 = same_points(torch, a16["aoR"], system, fac, res["dm"],
+                                   main["tr_fft"])
+    shared = len(set(r0["ip_idx"].tolist()) & set(a16["isdf"].ip_idx.tolist()))
+    for r, o in enumerate(outs):
+        log(f"16b rank {r}: stages " + ", ".join(f"{k}={v:.3f}" for k, v in o["seconds"].items())
+            + f" s; sent {o['bytes']} bytes; K1 {o['k1']} launches; peak {o['peak_gb']:.2f} GB")
+    log(f"16b {PAR_WORLD} ranks over gloo on one card: {secs:.1f} s with the rank starts; "
+        f"ranks agree to {d_ranks:.1e}; LDA step against 16a |dm| {d_dm:.2e}, e "
+        f"{d_e:.2e} relative (bar {PAR_REL}); K against the unsplit build from its points "
+        f"{rel1:.2e} (bar {PAR_REL}); |tr(D(K_fftdf - K))| {fit:.3e} Ha, the unsplit "
+        f"build's {fit_1:.3e} (bar +{PAR_FIT}), 16a's {a16['fit']:.3e}; {shared} of {len(r0['ip_idx'])} points shared with 16a (the "
+        "panel's candidates are each rank's top blk)")
+    check(d_ranks < 1e-12, "16b: the ranks' replicated results differ")
+    check(d_dm < PAR_REL and d_e < PAR_REL, "16b: the LDA step != 16a's")
+    check(rel1 < PAR_REL, "16b: split K != the unsplit build from the same points")
+    check(abs(fit - fit_1) < PAR_FIT, "16b: the split fit != the unsplit fit")
+    check(torch.device(dev).type != "cuda" or all(o["k1"] > 0 for o in outs),
+          "16b: K1 was not launched on a rank")
+    return dict(seconds=secs, k1=[o["k1"] for o in outs],
+                rank_seconds=[o["seconds"] for o in outs], bytes=[o["bytes"] for o in outs])
+
+
+def phase_par_k(torch, grp, ksys, krks, dev="cuda"):
+    """16c: the split k build at nk 27 (n_ip 4 nao nk) against build_isdf_k and
+    FFTDF, the LDA k step on phase 7's KRKS, and the hybrid k step (n_ip
+    8 nao nk, Madelung term) on a KRHF isdf c=8 state."""
+    from pyscf_isdf_tpu_torch.df import fftdf_k, isdf_k
+    from pyscf_isdf_tpu_torch.parallel import distributed_fft as dfft
+    from pyscf_isdf_tpu_torch.parallel.isdf_k_sharded import (build_isdf_k_sharded,
+                                                              make_kscf_step)
+    from pyscf_isdf_tpu_torch.parallel.mesh import slab_rows
+    from pyscf_isdf_tpu_torch.scf import kscf_kernel
+    from pyscf_isdf_tpu_torch.utils.timing import StageTimer
+
+    cell, kpts = ksys.cell, ksys.kpts
+    nk, nao, mesh3 = len(kpts), cell.nao, tuple(cell.mesh)
+    rows = slab_rows(mesh3, grp.rank, grp.world)
+    aoRk_l = ksys.aoR_k[:, rows]
+    coulG_t_l = dfft.coulG_transposed_layout(ksys.coulG, mesh3)[rows]
+    X_k = torch.stack(list(ksys.X))
+    timer = StageTimer(dev)
+    n_ip = 4 * nao * nk
+    fac = build_isdf_k_sharded(grp, cell, aoRk_l, kpts, n_ip=n_ip, timer=timer)
+    dm_k = krks["dm"]
+    vk = isdf_k.get_k_kpts(fac, dm_k)
+    vk_ref = fftdf_k.get_k_kpts(ksys.aoR_k, dm_k, ksys.coulG_pairs, ksys.expmikr,
+                                ksys.mesh, ksys.weight / nk)
+    one = isdf_k.build_isdf_k(cell, ksys.aoR_k, kpts, n_ip=n_ip)
+    fit1 = float((isdf_k.get_k_kpts(one, dm_k) - vk_ref).abs().max())
+    fit_s = float((vk - vk_ref).abs().max())
+    n_unique = int(torch.unique(fac.ip_idx).numel())
+    step = make_kscf_step(grp, mesh3, ksys.weight, nk, ksys.nelec_tot // 2, xc="lda,vwn")
+    (dm_new, e), s_step = timed(torch, lambda: step(dm_k, aoRk_l, coulG_t_l, fac,
+                                                    ksys.hcore, X_k, ksys.S), dev)
+    d_dm = float((dm_new - dm_k).abs().max())
+    d_e = abs(float(e) - (krks["e_tot"] - ksys.e_nuc))
+    khf, s_khf = timed(torch, lambda: kscf_kernel(ksys, xc=None, exxdiv="ewald",
+                                                  conv_tol=1e-10, df="isdf", isdf_c=8,
+                                                  device=dev), dev)
+    check(khf["converged"], "16c: the KRHF isdf c=8 did not converge")
+    fac_h = build_isdf_k_sharded(grp, cell, aoRk_l, kpts, n_ip=8 * nao * nk, timer=timer)
+    step_h = make_kscf_step(grp, mesh3, ksys.weight, nk, ksys.nelec_tot // 2, xc=None,
+                            exxdiv_madelung=float(ksys.madelung))
+    dm_h, e_h = step_h(khf["dm"], aoRk_l, coulG_t_l, fac_h, ksys.hcore, X_k, ksys.S)
+    d_hdm = float((dm_h - khf["dm"]).abs().max())
+    d_he = abs(float(e_h) - (khf["e_tot"] - ksys.e_nuc))
+    sec = {k: sum(v) for k, v in timer.seconds.items()}
+    log(f"16c split k build nk {nk} (n_ip {n_ip}, then {8 * nao * nk}): stages "
+        + ", ".join(f"{k}={v:.3f}" for k, v in sec.items())
+        + f" s; unique points {n_unique}; max|K - K_fftdf| {fit_s:.3e}, unsplit "
+        f"build's {fit1:.3e} (bar max(3x, 1e-9))")
+    log(f"16c LDA k step {s_step:.3f} s: |dm' - dm| {d_dm:.2e} (bar {PAR_FIX_DM}), "
+        f"|e - e_ref| {d_e:.2e} (bar {PAR_FIX_E}); KRHF isdf c=8 {khf['niter']} "
+        f"iterations {s_khf:.2f} s, hybrid step |dm' - dm| {d_hdm:.2e} (bar {PAR_HYB_DM}), "
+        f"|e - e_ref| {d_he:.2e} (bar {PAR_HYB_E})")
+    check(n_unique == n_ip, "16c: the split k selection repeated a point")
+    check(fit_s < max(3 * fit1, 1e-9), "16c: the split k fit is off")
+    check(d_dm < PAR_FIX_DM and d_e < PAR_FIX_E, "16c: the LDA k step moved a fixed point")
+    check(d_hdm < PAR_HYB_DM and d_he < PAR_HYB_E, "16c: the hybrid k step is off")
+    return dict(seconds=sec)
+
+
+def phase_par_gw(torch, grp, main, gw, dev="cuda"):
+    """16d: sigma_iw_sharded on 14a's inputs (nw GW_NW, every orbital) against
+    14a's _sigma_iw_batched."""
+    import numpy as np
+
+    from pyscf_isdf_tpu_torch.device import to_host
+    from pyscf_isdf_tpu_torch.gw import rgw
+    from pyscf_isdf_tpu_torch.parallel.gw_sharded import sigma_iw_sharded
+
+    system, res = main["system"], main["res"]
+    mo = to_host(res["mo_energy"])
+    nocc = system.nelec // 2
+    freqs, wts = rgw.scaled_legendre(GW_NW)
+    Lmo = gw["Lmo"].to(dev)
+    sig, secs = timed(torch, lambda: sigma_iw_sharded(
+        Lmo, mo, nocc, freqs, wts, rgw.sigma_grid(freqs), 0.5 * (mo[nocc - 1] + mo[nocc]),
+        grp), dev)
+    ref = gw["out"].sigma_iw
+    rel = float(np.abs(to_host(sig) - ref).max() / np.abs(ref).max())
+    log(f"16d sigma_iw_sharded ({grp.world} rank, nw {GW_NW}, {len(mo)} orbitals): "
+        f"{secs:.2f} s against 14a's sigma {gw['gw_s']:.2f} s for the whole G0W0; "
+        f"{rel:.2e} relative to 14a's (bar {PAR_SIGMA_REL})")
+    check(rel < PAR_SIGMA_REL, "16d: the split self-energy != 14a's")
+    return dict(seconds=secs, rel=rel)
+
+
+def phase_par_cc(torch, grp, cc, dev="cuda"):
+    """16e: kernel_sharded on 15b's Gamma supercell state against kernel."""
+    from pyscf_isdf_tpu_torch.cc import gccsd
+
+    ssys, sres = cc
+    f, eri = gamma_so_integrals(torch, ssys, sres)
+    no = ssys.nelec
+    one, s_one = timed(torch, lambda: gccsd.kernel(f, eri, no, conv_tol=1e-9), dev)
+    peak_one = peak_gb(torch, dev)
+    reset_peak(torch, dev)
+    sh, s_sh = timed(torch, lambda: gccsd.kernel_sharded(f, eri, no, conv_tol=1e-9), dev)
+    d = abs(sh["e_corr"] - one["e_corr"])
+    log(f"16e kernel_sharded (nso {f.shape[0]}, {grp.world} rank, DTensor over "
+        f"{grp.backend}): {sh['niter']} iterations {s_sh:.2f} s, peak {peak_gb(torch, dev):.2f} "
+        f"GB; kernel {one['niter']} iterations {s_one:.2f} s, peak {peak_one:.2f} GB; "
+        f"|e_corr diff| {d:.2e} Ha (bar {PAR_CC_BAR}); local t2 "
+        f"{tuple(sh['t2'].to_local().shape)}")
+    check(one["converged"] and sh["converged"], "16e: a CCSD did not converge")
+    check(d < PAR_CC_BAR, "16e: kernel_sharded != kernel")
+    return dict(seconds=s_sh, d=d)
+
+
+def phase_objects(torch, main, ksys, krks, dev="cuda"):
+    """16f: the object API: RKS PBE0 robust ISDF c=16 on the main cell against
+    phase 5 (energy, iterations, K1 and K2 launches), KRKS LDA on phase 7's
+    k-system against phase 7, the MP2, CCSD, GW and TDA objects on small
+    cells against the function-level calls, and a checkpoint round trip of
+    the card's result."""
+    import tempfile
+
+    import numpy as np
+
+    import pyscf_isdf_tpu_torch as pt
+    from pyscf_isdf_tpu_torch import build_cell
+    from pyscf_isdf_tpu_torch.cc import ccsd
+    from pyscf_isdf_tpu_torch.device import to_host
+    from pyscf_isdf_tpu_torch.gw import gw_ac_gamma
+    from pyscf_isdf_tpu_torch.models import diamond_primitive
+    from pyscf_isdf_tpu_torch.mp import mp2_energy
+    from pyscf_isdf_tpu_torch.ops.cuda_ao import collocate
+    from pyscf_isdf_tpu_torch.ops.cuda_robust_k import robust_k_cross
+    from pyscf_isdf_tpu_torch.tdscf import tda_kernel
+    from pyscf_isdf_tpu_torch.utils import chkfile
+
+    res5 = main["res"]
+    mf = pt.RKS(main["system"].cell, xc="pbe0", device=dev).density_fit("isdf-robust", c=16)
+    mf.conv_tol = 1e-8
+    k1_0, k2_0 = collocate.launches, robust_k_cross.launches
+    e, secs = timed(torch, mf.kernel, dev)
+    launches = {"ao_collocate": collocate.launches - k1_0,
+                "robust_k_cross": robust_k_cross.launches - k2_0}
+    d5 = abs(e - res5["e_tot"])
+    log(f"16f RKS(pbe0).density_fit('isdf-robust', c=16).kernel() on the main cell: "
+        f"{secs:.2f} s, e_tot {e:.10f} ({mf.niter} iterations), phase 5's "
+        f"{res5['e_tot']:.10f} ({res5['niter']}), |diff| {d5:.2e} (bar {OBJ_E_BAR}); "
+        f"launches {launches}, phase 5's {main['launches']}")
+    check(mf.converged and d5 < OBJ_E_BAR, "16f: the RKS object != phase 5")
+    check(mf.niter == res5["niter"], "16f: the RKS object took other iterations")
+    check(launches == main["launches"], "16f: K1/K2 launches differ from phase 5's")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "main.npz")
+        chkfile.save_scf(path, mf.cell, mf._res)
+        cell_b, back = chkfile.load_scf(path)
+        same = (chkfile.dumps_cell(cell_b) == chkfile.dumps_cell(mf.cell)
+                and back["e_tot"] == e
+                and all(np.array_equal(back[k], to_host(mf._res[k]))
+                        for k in ("mo_energy", "mo_coeff", "dm"))
+                and np.array_equal(chkfile.init_guess_by_chkfile(path), to_host(mf.dm)))
+    log(f"16f checkpoint of the card's result: bit-exact round trip {same}")
+    check(same, "16f: the checkpoint did not round-trip")
+    del mf
+    torch.cuda.empty_cache()
+
+    kmf = pt.KRKS(ksys.cell, ksys.kpts, xc="lda,vwn", device=dev)
+    kmf.conv_tol = 1e-10
+    ek, s_k = timed(torch, kmf.kernel, dev)
+    dk = abs(ek - krks["e_tot"])
+    log(f"16f KRKS(lda) on phase 7's k-system (nk {len(ksys.kpts)}): {s_k:.2f} s with its "
+        f"build, e {ek:.10f}, phase 7's {krks['e_tot']:.10f}, |diff| {dk:.2e} (bar {OBJ_E_BAR})")
+    check(kmf.converged and dk < OBJ_E_BAR, "16f: the KRKS object != phase 7")
+    del kmf
+
+    L = 7.0
+    a = L * np.eye(3)
+    a[1, 0] = 5.0
+    be = build_cell(a, [["Be", (L / 2, L / 2, L / 2)]], basis="gth-szv",
+                    pseudo="gth-pade-q2", mesh=[12] * 3)
+    hf = pt.RHF(be, exxdiv=None, device=dev)
+    hf.conv_tol = 1e-12
+    hf.kernel()
+    d_mp2 = abs(pt.MP2(hf)[0] - mp2_energy(hf.system, hf._res, device=dev))
+    d_cc = abs(pt.CCSD(hf)[0] - ccsd(hf.system, hf._res, device=dev)["e_corr"])
+    ks = pt.RKS(diamond_primitive(mesh=(12,) * 3), xc="pbe", device=dev)
+    ks.kernel()
+    gw = pt.GW(ks, orbs=[3, 4])
+    d_gw = float(np.abs(np.asarray(gw.qp_energy) - np.asarray(gw_ac_gamma(
+        ks.system, ks._res, xc="pbe", orbs=[3, 4], device=dev).qp_energy)).max())
+    d_tda = float(np.abs(pt.TDA(ks, nstates=3) - tda_kernel(
+        ks.system, ks._res, xc="pbe", nstates=3)[0]).max())
+    log(f"16f small-cell objects against the function-level calls: MP2 {d_mp2:.2e}, "
+        f"CCSD {d_cc:.2e} (Be), GW {d_gw:.2e}, TDA {d_tda:.2e} (diamond 12^3) "
+        f"(bar {OBJ_E_BAR})")
+    check(max(d_mp2, d_cc, d_gw, d_tda) < OBJ_E_BAR, "16f: an object != its function")
+    return dict(seconds=secs, launches=launches, d5=d5, dk=dk)
+
+
+def phase_parallel(torch, main, lda, ksys, krks, gw, cc, dev="cuda"):
+    """Phase 16: 16a, 16c, 16d and 16e on a world-size-1 group (nccl on the
+    card), 16b on PAR_WORLD rank processes, then 16f; K1's and K2's launches
+    counted from 0 over the phase (16b's in its ranks)."""
+    import tempfile
+
+    from pyscf_isdf_tpu_torch.ops.cuda_ao import collocate
+    from pyscf_isdf_tpu_torch.ops.cuda_robust_k import robust_k_cross
+    from pyscf_isdf_tpu_torch.parallel import init_group
+
+    collocate.launches = 0
+    robust_k_cross.launches = 0
+    out = {}
+
+    def sub(name, fn, *args):
+        reset_peak(torch, dev)
+        t0 = time.perf_counter()
+        out[name] = fn(torch, *args, dev=dev)
+        log(f"{name}: {time.perf_counter() - t0:.1f} s, peak device memory "
+            f"{peak_gb(torch, dev):.2f} GB")
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            init_group(os.path.join(tmp, "store"), 0, 1, dev) as grp:
+        sub("16a", phase_par_gamma, grp, main, lda)
+        k1_16a = collocate.launches
+        sub("16c", phase_par_k, grp, ksys, krks)
+        sub("16d", phase_par_gw, grp, main, gw)
+        sub("16e", phase_par_cc, grp, cc)
+    sub("16b", phase_par_ranks, main, lda, out["16a"])
+    del out["16a"]["isdf"], out["16a"]["dm"], out["16a"]["aoR"]
+    sub("16f", phase_objects, main, ksys, krks)
+    out["launches"] = {"ao_collocate": collocate.launches,
+                       "robust_k_cross": robust_k_cross.launches,
+                       "ao_collocate_16a": k1_16a, "ao_collocate_16b_ranks": out["16b"]["k1"],
+                       "16f": out["16f"]["launches"]}
+    check(torch.device(dev).type != "cuda" or k1_16a > 0, "16a: K1 was not launched")
+    return out
+
+
 def main():
     try:
         import torch
@@ -3542,8 +3992,8 @@ def main():
             ("14d", phase_gw_k, (main_path, ksys, krks, slice10["13b"]["lda"])),
             ("14e", phase_eph, ()),
             ("14f", phase_small_slice11, ())):
-        if name == "14d":
-            del slice11["14a"]["Lmo"]
+        if name == "14d":          # 16d reads it again: kept on the host meanwhile
+            slice11["14a"]["Lmo"] = slice11["14a"]["Lmo"].cpu()
         reset_peak(torch, "cuda")
         t0 = time.perf_counter()
         slice11[name] = fn(torch, *(a() if callable(a) else a for a in args))
@@ -3552,7 +4002,8 @@ def main():
         torch.cuda.empty_cache()
     slice11_launches = {"ao_collocate": collocate.launches,
                         "robust_k_cross": robust_k_cross.launches}
-    del main_path, ksys, krks, krhf, slice10
+    lda_main = slice10["13b"]["lda"]
+    del krhf, slice10
     torch.cuda.empty_cache()
     log(f"phase 14: {time.perf_counter() - t14:.1f} s, launches {slice11_launches}")
     check(slice11_launches["ao_collocate"] > 0, "phase 14: K1 was not launched")
@@ -3572,6 +4023,13 @@ def main():
                         "robust_k_cross": robust_k_cross.launches}
     log(f"phase 15: {time.perf_counter() - t15:.1f} s, launches {slice12_launches}")
     check(slice12_launches["ao_collocate"] > 0, "phase 15: K1 was not launched")
+    t16 = time.perf_counter()
+    slice13 = phase_parallel(torch, main_path, lda_main, ksys, krks, slice11["14a"],
+                             slice12["15b"].pop("gamma"))
+    del main_path, ksys, krks, lda_main, slice11["14a"]["Lmo"]
+    torch.cuda.empty_cache()
+    log(f"phase 16: {time.perf_counter() - t16:.1f} s, launches {slice13['launches']}")
+    check(slice13["launches"]["robust_k_cross"] > 0, "phase 16: K2 was not launched")
 
     kernels = [
         dict(name="ao_collocate", route="cuda",
@@ -3590,6 +4048,10 @@ def main():
              slice11=dict(launches=slice11_launches["ao_collocate"],
                           gdf_build=slice11["14a"]["k1"]),
              slice12=dict(launches=slice12_launches["ao_collocate"]),
+             slice13=dict(launches=slice13["launches"]["ao_collocate"],
+                          launches_16a=slice13["launches"]["ao_collocate_16a"],
+                          launches_16b_ranks=slice13["launches"]["ao_collocate_16b_ranks"],
+                          launches_16f=slice13["launches"]["16f"]["ao_collocate"]),
              slice10=dict(launches=forces["launches"], max_abs_err=forces["err"],
                           ms=forces["k1"]["ms"], plain_ms=forces["k1"]["plain_ms"],
                           bound_ms=forces["k1"]["bound_ms"],
@@ -3621,7 +4083,9 @@ def main():
              slice9=dict(launches=dict(becke=becke["launches"]["robust_k_cross"])),
              slice10=dict(launches=k2_slice10),
              slice11=dict(launches=slice11_launches["robust_k_cross"]),
-             slice12=dict(launches=slice12_launches["robust_k_cross"])),
+             slice12=dict(launches=slice12_launches["robust_k_cross"]),
+             slice13=dict(launches=slice13["launches"]["robust_k_cross"],
+                          launches_16f=slice13["launches"]["16f"]["robust_k_cross"])),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

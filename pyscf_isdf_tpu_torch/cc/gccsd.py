@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from pyscf_isdf_tpu_torch.device import require_device
-from pyscf_isdf_tpu_torch.scf.diis import DIIS
+from pyscf_isdf_tpu_torch.scf.diis import DIIS, diis_coefficients
 
 ein = torch.einsum
 
@@ -90,7 +90,9 @@ def _update(t1, t2, f, eri, no):
     return _update_blocks(t1, t2, f, make_blocks(eri, no), no)
 
 
-def _update_blocks(t1, t2, f, B, no):
+def _update_blocks(t1, t2, f, B, no, ein=torch.einsum):
+    """The update on the blocks of :func:`make_blocks`; ``ein`` is the einsum
+    (:func:`_split_einsum` on the DTensors of :func:`kernel_sharded`)."""
     o, v = slice(None, no), slice(no, None)
     fov = f[o, v]
     e = torch.diagonal(f).real
@@ -208,6 +210,155 @@ def kernel(f, eri, nocc, conv_tol=1e-9, max_cycle=100, diis_space=8,
             break
     return {"e_corr": e_last, "t1": t1, "t2": t2, "converged": conv,
             "niter": it}
+
+
+def _split_einsum(eq, *ops):
+    """``torch.einsum`` over DTensors that are split (``Shard``) along one
+    index label, by hand: each rank contracts its local pieces, with the
+    replicated operands narrowed to its columns of that label. The result
+    is split along the label when the output keeps it, else a partial sum
+    (``Partial``). Of operands split along different labels the largest is
+    kept split and the others are gathered; partial operands are reduced
+    first. DTensor's own einsum flattens split dimensions, which its
+    propagation refuses in some torch versions (2.11), and left to itself
+    it forms the (nv,)*4 ladder tau <mn||ef> whole on every rank: here it
+    stays split over f, the larger operand <mn||ef> being kept split.
+    """
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    lhs, out = eq.replace(" ", "").split("->")
+    labels = lhs.split(",")
+    mesh = next(o.device_mesh for o in ops if isinstance(o, DTensor))
+    ops = [o if isinstance(o, DTensor) else DTensor.from_local(o, mesh, [Replicate()])
+           for o in ops]
+    ops = [o.redistribute(placements=[Replicate()]) if o.placements[0].is_partial()
+           else o for o in ops]
+    size = {lab: n for lb, o in zip(labels, ops) for lab, n in zip(lb, o.shape)}
+    split = [(o.numel(), i, labels[i][o.placements[0].dim])
+             for i, o in enumerate(ops) if o.placements[0].is_shard()]
+    if not split:
+        return DTensor.from_local(torch.einsum(eq, *[o.to_local() for o in ops]), mesh,
+                                  [Replicate()])
+    lab = max(split)[2]
+    n, world, rank = size[lab], mesh.size(), mesh.get_local_rank()
+    width = -(-n // world)                       # torch.chunk's split of Shard
+    start = min(rank * width, n)
+    stop = min(start + width, n)
+    pieces = []
+    for i, o in enumerate(ops):
+        if o.placements[0].is_shard() and labels[i][o.placements[0].dim] == lab:
+            pieces.append(o.to_local())
+            continue
+        full = o if o.placements[0].is_replicate() else o.redistribute(
+            placements=[Replicate()])
+        t = full.to_local()
+        if lab in labels[i]:
+            t = t.narrow(labels[i].index(lab), start, stop - start)
+        pieces.append(t)
+    res = torch.einsum(eq, *pieces).contiguous()
+    if lab not in out:
+        return DTensor.from_local(res, mesh, [Partial()])
+    shape = tuple(size[c] for c in out)
+    stride = tuple(int(torch.tensor(shape[k + 1:]).prod()) for k in range(len(shape)))
+    return DTensor.from_local(res, mesh, [Shard(out.index(lab))], shape=shape,
+                              stride=stride)
+
+
+def kernel_sharded(f, eri, nocc, mesh=None, conv_tol=1e-9, max_cycle=100,
+                   diis_space=8, verbose=False):
+    """SPMD CCSD over the ranks of a process group, the reference's mpicc
+    analog (pyscf/pbc/mpicc, MPI-parallel KCCSD), done with
+    ``torch.distributed.tensor``: every ``*v`` block of
+    :func:`make_blocks` and t2 are DTensors split over their trailing
+    virtual axis (``Shard(3)``), f, t1 and the other blocks replicated, and
+    the same :func:`_update_blocks` runs on them, its einsums through
+    :func:`_split_einsum` and its elementwise terms through DTensor's
+    propagation (collectives inserted by the two). Each rank stores 1/P of
+    t2 and of every ``*v`` block.
+    DIIS runs on the local pieces: the Gram of the error vectors is the
+    replicated t1 part plus the all_reduce of the local t2 parts.
+
+    Args:
+        f, eri, nocc: as :func:`kernel`, the same on every rank.
+        mesh: a 1-D ``DeviceMesh`` (default: every rank of the default
+            process group, on the device type of ``eri``).
+    Returns dict with e_corr (float), t1 (replicated tensor), t2 (a DTensor
+    split over its last axis), blocks (the placed integral blocks),
+    converged, niter.
+    """
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    eri = _t(eri)
+    f = _t(f, eri.device)
+    f = f.to(torch.promote_types(f.dtype, eri.dtype))
+    no = int(nocc)
+    nv = f.shape[0] - no
+    if mesh is None:
+        mesh = init_device_mesh(eri.device.type, (dist.get_world_size(),))
+    rep, split = [Replicate()], [Shard(3)]
+
+    def place(x, placements):       # every rank holds x: no data moves
+        return distribute_tensor(x.contiguous(), mesh, placements,
+                                 src_data_rank=None)
+
+    B = {k: place(b, split if k[-1] == "v" else rep)
+         for k, b in make_blocks(eri, no).items()}
+    f_d = place(f, rep)
+    t1, t2 = _mp2_start(f, eri, no)
+    t1, t2 = place(t1, rep), place(t2, split)
+    t2_shape = (no, no, nv, nv)
+    t2_stride = (no * nv * nv, nv * nv, nv, 1)
+    fov = f_d[:no, no:]
+
+    def e_corr(t1, t2):
+        terms = ((1.0, _split_einsum("ia,ia->", fov, t1)),
+                 (0.25, _split_einsum("ijab,ijab->", B["oovv"], t2)),
+                 (0.5, _split_einsum("ijab,ia,jb->", B["oovv"], t1, t1)))
+        return sum(c * float(x.full_tensor().real) for c, x in terms)
+
+    vecs, errs = [], []
+    e_last = e_corr(t1, t2)
+    conv = False
+    it = 0
+    for it in range(1, max_cycle + 1):
+        t1n, t2n = _update_blocks(t1, t2, f_d, B, no, ein=_split_einsum)
+        # contiguous local pieces: from_local below states contiguous strides
+        t1n = t1n.redistribute(mesh, rep).to_local().contiguous()
+        t2n = t2n.redistribute(mesh, split).to_local().contiguous()
+        vecs.append((t1n, t2n))
+        errs.append(((t1n - t1.to_local()).reshape(-1),
+                     (t2n - t2.to_local()).reshape(-1)))
+        if len(vecs) > diis_space:
+            vecs.pop(0)
+            errs.pop(0)
+        E1 = torch.stack([e[0] for e in errs])
+        E2 = torch.stack([e[1] for e in errs])
+        g2 = (E2.conj() @ E2.T).real.contiguous()
+        dist.all_reduce(g2, group=mesh.get_group())
+        gram = ((E1.conj() @ E1.T).real + g2).cpu().numpy()
+        if len(vecs) >= 2:
+            c = diis_coefficients(gram)
+            t1l = sum(float(ci) * v[0] for ci, v in zip(c, vecs))
+            t2l = sum(float(ci) * v[1] for ci, v in zip(c, vecs))
+        else:
+            t1l, t2l = t1n, t2n
+        t1 = DTensor.from_local(t1l, mesh, rep)
+        t2 = DTensor.from_local(t2l, mesh, split, shape=t2_shape,
+                                stride=t2_stride)
+        e_cc = e_corr(t1, t2)
+        de = abs(e_cc - e_last)
+        rnorm = float(np.sqrt(gram[-1, -1]))
+        if verbose:
+            print(f"CCSD(sharded) cycle {it:3d}  E_corr = {e_cc:.12f}  "
+                  f"dE = {de:.2e}  |r| = {rnorm:.2e}")
+        e_last = e_cc
+        if de < conv_tol and rnorm < np.sqrt(conv_tol):
+            conv = True
+            break
+    return {"e_corr": e_last, "t1": t1.to_local(), "t2": t2, "blocks": B,
+            "converged": conv, "niter": it}
 
 
 def _t_energy(t1, t2, f, eri, no):

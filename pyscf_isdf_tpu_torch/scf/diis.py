@@ -29,15 +29,22 @@ class DIIS:
         if n < self.min_space:
             return fock
         E = torch.stack(self._errs)
-        B = np.empty((n + 1, n + 1))
-        B[-1, :] = -1.0
-        B[:, -1] = -1.0
-        B[-1, -1] = 0.0
-        B[:n, :n] = (E.conj() @ E.T).real.cpu().numpy()
-        rhs = np.zeros(n + 1)
-        rhs[-1] = -1.0
-        try:
-            c = np.linalg.solve(B, rhs)[:n]
-        except np.linalg.LinAlgError:
-            c = np.linalg.lstsq(B, rhs, rcond=None)[0][:n]
+        c = diis_coefficients((E.conj() @ E.T).real.cpu().numpy())
         return sum(float(ci) * fi for ci, fi in zip(c, self._focks))
+
+
+def diis_coefficients(gram: np.ndarray) -> np.ndarray:
+    """The extrapolation weights (summing to 1) that minimise the norm of
+    the combined error, from the (n, n) Gram matrix Re <e_i, e_j>."""
+    n = gram.shape[0]
+    B = np.empty((n + 1, n + 1))
+    B[-1, :] = -1.0
+    B[:, -1] = -1.0
+    B[-1, -1] = 0.0
+    B[:n, :n] = gram
+    rhs = np.zeros(n + 1)
+    rhs[-1] = -1.0
+    try:
+        return np.linalg.solve(B, rhs)[:n]
+    except np.linalg.LinAlgError:
+        return np.linalg.lstsq(B, rhs, rcond=None)[0][:n]

@@ -84,7 +84,11 @@ K_MODULES = ("kpts_helper", "k2gamma", "convert", "scf.khf", "scf.occupations",
              "tdscf.rks", "tdscf.response", "tdscf.ktda", "gw", "gw.rgw",
              "gw.gw_exact", "gw.krgw", "gw.ugw", "gw.gw_cd", "eph", "eph.eph_fd",
              "cc", "cc.gccsd", "cc.kccsd_blocked", "cc.krccsd", "cc.kccsd", "cc.fci",
-             "cc.cisd", "cc.eom", "cc.density", "cc.adc")
+             "cc.cisd", "cc.eom", "cc.density", "cc.adc", "parallel",
+             "parallel.mesh", "parallel.distributed_fft", "parallel.isdf_sharded",
+             "parallel.scf_step", "parallel.isdf_k_sharded", "parallel.gw_sharded",
+             "frontend", "tools", "utils.config", "utils.logger", "utils.chkfile",
+             "utils.misc", "utils.profiling")
 
 
 def test_port_imports_no_jax():
@@ -93,8 +97,9 @@ def test_port_imports_no_jax():
     mean-field drivers and bands, and the Becke grids, PME, the
     all-electron integrals, GDF, AFTDF, aegdf and X2C, the forces, stress
     and linear-response packages (grad, tdscf), GW, RPA and the
-    electron-phonon coupling (gw, eph), and coupled cluster (cc) named,
-    leaves jax and
+    electron-phonon coupling (gw, eph), coupled cluster (cc), the
+    multi-rank layer (parallel), the object API (frontend) and the tools and
+    utils named, leaves jax and
     the JAX package out of sys.modules (a subprocess: this test process has
     imported jax)."""
     code = (
@@ -183,3 +188,56 @@ def test_slice8_entry_points_default_to_cuda(monkeypatch):
             fn(system, *args[fn])
     assert rohf_kernel(gsys, nelec=(5, 3), device="cpu")["converged"]
     assert kghf_kernel(ksys, device="cpu", max_cycle=3)["niter"] == 3
+
+
+def test_object_api_and_parallel_default_to_cuda(monkeypatch):
+    """The frontend constructors and the process-group entry points
+    (init_group, launch, grid_mesh) take device=None as the GPU and refuse
+    without CUDA; the process-group entry points pick nccl for CUDA and gloo
+    for the CPU, refuse a CUDA group without CUDA, and never switch backend
+    by themselves (nccl asked for where it cannot run raises)."""
+    import inspect
+    import tempfile
+
+    import pyscf_isdf_tpu_torch as pt
+    from pyscf_isdf_tpu_torch import lattice
+    from pyscf_isdf_tpu_torch.parallel import grid_mesh, init_group, launch
+    from pyscf_isdf_tpu_torch.parallel.mesh import default_backend
+
+    cell = diamond_primitive(mesh=(7, 7, 7))
+    kpts = lattice.make_kpts(cell.a, [2, 1, 1])
+    gamma = (pt.RHF, pt.RKS, pt.UHF, pt.UKS, pt.ROHF)
+    kcls = (pt.KRHF, pt.KRKS, pt.KUHF, pt.KUKS, pt.KROHF, pt.KGHF, pt.KRKSpU)
+    for cls in gamma + kcls:
+        assert inspect.signature(cls).parameters["device"].default is None
+    mf = pt.RKS(cell, device="cpu")
+    assert mf.device.type == "cpu" and mf.system.aoR.device.type == "cpu"
+    assert default_backend("cuda") == "nccl" and default_backend("cpu") == "gloo"
+    with pytest.raises(RuntimeError, match="no process group"):
+        grid_mesh()
+    with tempfile.TemporaryDirectory() as tmp:
+        with pytest.raises(ValueError, match="nccl takes CUDA tensors"):
+            init_group(os.path.join(tmp, "store"), 0, 1, "cpu", backend="nccl")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cls in gamma:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cls(cell)
+    for cls in kcls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cls(cell, kpts)
+    with tempfile.TemporaryDirectory() as tmp:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            init_group(os.path.join(tmp, "store"), 0, 1, "cuda")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            init_group(os.path.join(tmp, "store"), 0, 1)
+    # launch and grid_mesh take device=None as the GPU too
+    for fn in (launch, init_group, grid_mesh):
+        assert inspect.signature(fn).parameters["device"].default is None
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch(default_backend, 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        with init_group(os.path.join(tmp, "store"), 0, 1, "cpu", "gloo") as grp:
+            assert grp.device.type == "cpu" and grp.backend == "gloo"
+            assert grid_mesh("cpu").device.type == "cpu"
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                grid_mesh()
